@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of CARD on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+  1. device   the card's name and power limit (nvidia-smi), the torch and
+              CUDA versions; TF32 must be off;
+  2. build    nvcc builds every kernel in src/repro_torch/kernels/csrc
+              (seconds and ptxas register lines);
+  3. kernel   each kernel against its plain PyTorch version on the card,
+              at the main path's shapes, with kernel, plain and
+              library-call times and the bound;
+  4. main     CARD ingest end to end (DedupStore on the card) over
+              sql_dump and vmdk, 32 MiB x 4 versions: fit, ingest,
+              SHA-256-identical restore, stage times, DCR and the launch
+              count of each kernel, which must all be > 0; then a
+              profiled ingest ("profile") for the device busy share;
+  5. fit      the card's context-model fit against a CPU fit from the
+              same init and batch stream (per-step loss, transform);
+  6. parity   the port on the card and on the CPU over kernel-workload
+              streams, under one model: identical verdicts, records,
+              per-stream counts and DCR.
+Then the nvidia-smi line, the kernels summary line, and the result line.
+Exits non-zero on any mismatch and when there is no CUDA device.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.api.store import DedupStore, chunk_with  # noqa: E402
+from repro_torch.core import chunking, context_model, features, hashing, pipeline  # noqa: E402
+from repro_torch.data import workloads  # noqa: E402
+from repro_torch.kernels import _build, gear_hash, ingest, ops, shingle_embed, sim_topk  # noqa: E402
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): device memory
+# rate and fp32 outside the tensor cores, used for each kernel's bound
+# (the kernels do fp32 and 32-bit integer work on the scalar ALUs).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+FEAT = features.FeatureConfig(k=32, m=64, n=2)
+MODEL = context_model.ContextModelConfig(m=64, d=50, steps=150)
+CHUNKER = chunking.ChunkerConfig(avg_size=8192)
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call, by CUDA events over ``reps`` calls.
+
+    A sleep kernel holds the stream while the host enqueues the calls, so
+    they run back to back and host overhead between launches (ctypes,
+    allocation) stays out of the device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 400_000)     # ~0.2 ms of cycles per call
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --- phase 3: kernels against their plain versions -----------------------------
+
+def check_gear(dev, sizes, gen) -> dict:
+    mask_s, mask_l = CHUNKER.mask_s, CHUNKER.mask_l
+    for n in sizes:
+        data = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev, generator=gen)
+        h, ws, wl = ops.scan_candidates(data, mask_s, mask_l)
+        ph, pws, pwl = gear_hash.scan_plain(data, mask_s, mask_l)
+        torch.cuda.synchronize()
+        if not (torch.equal(h, ph) and torch.equal(ws, pws) and torch.equal(wl, pwl)):
+            fail(f"scan_candidates != plain at n={n}")
+        if not torch.equal(ops.gear_hashes(data), gear_hash.gear_hashes_plain(data)):
+            fail(f"gear_hashes != plain at n={n}")
+        if not torch.equal(ops.rabin_fps(data), gear_hash.rabin_fps_plain(data, hashing.RABIN_WINDOW)):
+            fail(f"rabin_fps != plain at n={n}")
+    n = sizes[-1]
+    ms = time_ms(lambda: ops.scan_candidates(data, mask_s, mask_l))
+    plain_ms = time_ms(lambda: gear_hash.scan_plain(data, mask_s, mask_l), reps=3, warmup=1)
+    rabin_ms = time_ms(lambda: ops.rabin_fps(data))
+    # bytes: each input byte read, each hash and candidate word written;
+    # operations: the serial gear recurrence h = (h << 1) + g (2 a
+    # position) and two mask tests (2 each), at the scalar-ALU rate
+    b_ms, b_by = bound(n + 4 * n + 2 * 4 * gear_hash.num_words(n), 6.0 * n)
+    cands = int(torch.sum(ws != 0).item())
+    emit("kernel", name="gear_scan", sizes=sizes, exact=True, n=n, kernel_ms=ms,
+         plain_ms=plain_ms, rabin_ms=rabin_ms, bound_ms=b_ms, bound_by=b_by,
+         library_ms=None, nonzero_cand_words=cands)
+    return dict(name="gear_scan", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=[n])
+
+
+def check_embed(dev, gen) -> dict:
+    rows, s_len = 4096, FEAT.num_shingles
+    a_np, b_np = hashing.multiply_shift_params(FEAT.m)
+    a = hashing.to_i32_bits(hashing.u32_tensor(a_np, dev))
+    b = hashing.to_i32_bits(hashing.u32_tensor(b_np, dev))
+    ids = torch.randint(-2**31, 2**31 - 1, (rows, s_len), dtype=torch.int32,
+                        device=dev, generator=gen)
+    mask = torch.rand(rows, s_len, device=dev, generator=gen) < 0.8
+    mask[:4] = False                               # all-masked rows give 0
+    got = ops.shingle_embed(ids, mask, a, b)
+    want = shingle_embed.mean_normalize(
+        shingle_embed.shingle_embed_sum_plain(ids, mask, a, b), mask)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        fail(f"shingle_embed != plain (max abs err {err})")
+    if float(got[:4].abs().max()) != 0.0:
+        fail("shingle_embed: an all-masked row is not 0")
+    ms = time_ms(lambda: shingle_embed.shingle_embed_sum_cuda(ids, mask, a, b), reps=50)
+    plain_ms = time_ms(lambda: shingle_embed.shingle_embed_sum_plain(ids, mask, a, b))
+    valid = int(mask.sum())
+    b_ms, b_by = bound(5 * rows * s_len + 8 * FEAT.m + 4 * rows * FEAT.m,
+                       5.0 * valid * FEAT.m)
+    emit("kernel", name="shingle_embed", shape=[rows, s_len, FEAT.m],
+         max_abs_err=err, tol=1e-5, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+         bound_by=b_by, library_ms=None)
+    return dict(name="shingle_embed", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=[rows, s_len, FEAT.m])
+
+
+def library_topk(q, index, block=1 << 18):
+    """One torch.matmul + max per block of index rows: the yardstick."""
+    best = None
+    for n0 in range(0, index.shape[0], block):
+        s, _ = torch.max(q @ index[n0:n0 + block].T, dim=1)
+        best = s if best is None else torch.maximum(best, s)
+    return best
+
+
+def compare_topk(q, index, s, r) -> float:
+    """Scores within 1e-4 of the plain version and every row equal;
+    returns the max score error."""
+    ps, pr = sim_topk.sim_topk_plain(q, index)
+    err = float((s - ps).abs().max())
+    if not torch.allclose(s, ps, rtol=1e-4, atol=1e-4):
+        fail(f"sim_topk scores != plain (max abs err {err})")
+    wrong = int((r != pr).sum())
+    if wrong:
+        fail(f"sim_topk argmax != plain on {wrong} of {r.numel()} rows")
+    return err
+
+
+def unit_rows(rows: int, d: int, dev, gen) -> torch.Tensor:
+    """Random L2-normalised rows: what CosineIndex stores and is asked."""
+    x = torch.randn(rows, d, device=dev, generator=gen)
+    return x / torch.linalg.norm(x, dim=1, keepdim=True)
+
+
+def check_topk(dev, gen, big_n: int) -> dict:
+    d = MODEL.d
+    # padding never wins; ties go to the lowest row (across splits too)
+    q = -torch.eye(4, 16, device=dev)
+    _, r = ops.sim_topk(q, torch.eye(3, 16, device=dev))
+    if int(r.max()) >= 3:
+        fail("sim_topk: a padded row won")
+    same = torch.full((200_000, 16), 0.25, device=dev)
+    _, r = ops.sim_topk(torch.ones(9, 16, device=dev), same)
+    if int(r.abs().max()) != 0:
+        fail("sim_topk: a tie across splits did not go to row 0")
+    idx = torch.randn(200_000, 16, device=dev, generator=gen) * 0.01
+    idx[150_000] = 1.0
+    idx[160_000] = 1.0
+    _, r = ops.sim_topk(torch.ones(9, 16, device=dev), idx)
+    if not bool((r == 150_000).all()):
+        fail("sim_topk: a tie did not go to the lowest row")
+
+    q = unit_rows(4096, d, dev, gen)
+    out = None
+    for n in (16_384, big_n):
+        index = unit_rows(n, d, dev, gen)
+        s, r = ops.sim_topk(q, index)
+        err = compare_topk(q, index, s, r)
+        ms = time_ms(lambda: ops.sim_topk(q, index), reps=10)
+        plain_ms = time_ms(lambda: sim_topk.sim_topk_plain(q, index), reps=5, warmup=1)
+        lib_ms = time_ms(lambda: library_topk(q, index), reps=5, warmup=1)
+        b_ms, b_by = bound(4 * (q.numel() + index.numel()) + 8 * q.shape[0],
+                           2.0 * q.shape[0] * n * d)
+        emit("kernel", name="sim_topk", shape=[q.shape[0], n, d], max_abs_err=err,
+             argmax="exact", kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=b_ms, bound_by=b_by)
+        row = dict(name="sim_topk", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   shape=[q.shape[0], n, d])
+        if out is None:
+            out = row
+        else:
+            out["large_index"] = row
+        del index
+    return out
+
+
+# --- phase 4: the main path ----------------------------------------------------
+
+def card_detector(device) -> pipeline.CARDDetector:
+    return pipeline.CARDDetector(feat_cfg=FEAT, model_cfg=MODEL, threshold=0.3,
+                                 device=device)
+
+
+def main_path(name: str, versions: list[bytes]) -> dict[str, int]:
+    store = DedupStore(card_detector(None), CHUNKER)
+    store._clock()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    store.fit(versions[:1])
+    t1 = time.perf_counter()
+    for v in versions:
+        store.ingest(v)
+    t2 = store._clock()
+    for h, v in enumerate(versions):
+        if hashlib.sha256(store.restore(h)).digest() != hashlib.sha256(v).digest():
+            fail(f"{name}: version {h} did not restore byte-identically")
+    t3 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    st = store.stats
+    total = sum(len(v) for v in versions)
+    per_kernel = {"gear_scan": launches["scan_candidates"] + launches["gear_hashes"]
+                  + launches["rabin_fps"],
+                  "shingle_embed": launches["shingle_embed"],
+                  "sim_topk": launches["sim_topk"]}
+    emit("main", workload=name, base_mib=BASE / 2**20, versions=len(versions),
+         bytes_in=total, ingest_mb_per_s=total / 1e6 / (t2 - t1),
+         fit_s=t1 - t0, ingest_s=t2 - t1, restore_s=t3 - t2,
+         stages_s={"chunk": st.chunk_seconds, "extract": st.extract_seconds,
+                   "score": st.score_seconds, "observe": st.observe_seconds,
+                   "delta": st.delta_seconds, "store": st.store_seconds},
+         chunks=st.chunks, dup=st.dup_chunks, delta=st.delta_chunks,
+         raw=st.raw_chunks, dcr=st.dcr, restored="sha256-identical",
+         launches=per_kernel, wrapper_launches=launches)
+    if min(per_kernel.values()) <= 0:
+        fail(f"{name}: a kernel was never launched on the main path: {per_kernel}")
+    if not (st.dcr > 1.0 and st.delta_chunks > 0):
+        fail(f"{name}: no delta compression (dcr {st.dcr})")
+    return per_kernel
+
+
+def device_share(name: str, versions: list[bytes]) -> None:
+    """Device busy share of one ingest (the second version of ``name``):
+    kernel and copy time summed by torch.profiler over the host wall time
+    (one stream, so device rows never overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    store = DedupStore(card_detector(None), CHUNKER)
+    store.fit(versions[:1])
+    store.ingest(versions[0])
+    store._clock()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        store.ingest(versions[1])
+        wall = store._clock() - t0
+    # device-side rows only (kernels, copies): an operator's row repeats
+    # the device time of the kernels it launched
+    dev_rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in dev_rows) / 1e6
+    if device_s <= 0:
+        fail(f"{name}: the profiler recorded no device time")
+    top = sorted(dev_rows, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    emit("profile", workload=name, base_mib=BASE / 2**20, wall_s=wall,
+         device_s=device_s, device_busy_share=device_s / wall,
+         top_device_ms={e.key: e.self_device_time_total / 1e3 for e in top})
+
+
+# --- phases 5 and 6: the card's fit, then card / CPU parity ------------------
+
+def record_verdicts(det) -> list:
+    seen = []
+    score = det.score
+
+    def recording(feats, batch):
+        res = score(feats, batch)
+        seen.append(res.base_ids.copy())
+        return res
+
+    det.score = recording
+    return seen
+
+
+def fit_phase(versions: list[bytes]) -> tuple[DedupStore, DedupStore]:
+    """The card's fit (cuBLAS steps, cuSOLVER pinv) against the CPU's from
+    the same seeded init and the same batch indices: per-step loss within
+    1e-4 relative (as the CPU port is held against JAX), and the two
+    transforms of one feature batch within 1e-4. Returns the fitted CPU
+    and card stores."""
+    cpu = DedupStore(card_detector("cpu"), CHUNKER, device="cpu")
+    gpu = DedupStore(card_detector(None), CHUNKER)
+    if not torch.equal(gpu.detector.model.w.detach().cpu(), cpu.detector.model.w.detach()):
+        fail("card and CPU context models start from different params")
+    cpu.fit(versions[:1])
+    gpu.fit(versions[:1])
+    lc = np.asarray(cpu.detector.model.losses)
+    lg = np.asarray(gpu.detector.model.losses)
+    if len(lg) != len(lc):
+        fail(f"card fit ran {len(lg)} steps, CPU fit {len(lc)}")
+    loss_err = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    chunks, h = chunk_with(CHUNKER, versions[1], "cpu")
+    feats = cpu.detector._initial_features(chunks, h)
+    want = cpu.detector.model.transform(feats)
+    got = gpu.detector.model.transform(feats.to(gpu.device)).cpu()
+    tf_err = float((got - want).abs().max())
+    emit("fit", workload="kernel", steps=len(lc), loss_first=float(lc[0]),
+         loss_last=float(lc[-1]), loss_max_rel_err=loss_err, rows=feats.shape[0],
+         transform_max_abs_err=tf_err, tol=1e-4)
+    if loss_err > 1e-4:
+        fail(f"card fit losses != CPU fit (max rel err {loss_err})")
+    if tf_err > 1e-4:
+        fail(f"card fit transform != CPU fit (max abs err {tf_err})")
+    return cpu, gpu
+
+
+def parity_phase(cpu: DedupStore, gpu: DedupStore, versions: list[bytes]) -> None:
+    """The port on the card and on the CPU, under one context model (the
+    CPU's, carried to the card): identical verdicts, records, per-stream
+    counts and DCR, and byte-identical restores."""
+    gpu.detector.model = convert.context_model_from_params(
+        cpu.detector.model.w.detach().numpy(), cpu.detector.model.u.detach().numpy(),
+        MODEL, device=gpu.device)
+    v_cpu, v_gpu = record_verdicts(cpu.detector), record_verdicts(gpu.detector)
+    for v in versions:
+        cpu.ingest(v)
+        gpu.ingest(v)
+    same_verdicts = (len(v_cpu) == len(v_gpu)
+                     and all(np.array_equal(a, b) for a, b in zip(v_cpu, v_gpu)))
+    same_records = (sorted(cpu.backend.chunk_ids()) == sorted(gpu.backend.chunk_ids())
+                    and all(cpu.backend.record(c) == gpu.backend.record(c)
+                            for c in cpu.backend.chunk_ids()))
+    key = lambda r: (r.chunks, r.dup_chunks, r.delta_chunks, r.raw_chunks, r.bytes_stored)
+    same_reports = [key(r) for r in cpu.reports] == [key(r) for r in gpu.reports]
+    restored = all(gpu.restore(h) == v for h, v in enumerate(versions))
+    emit("parity", workload="kernel", base_mib=1, versions=len(versions),
+         verdicts_identical=same_verdicts, records_identical=same_records,
+         reports_identical=same_reports, dcr_cpu=cpu.stats.dcr,
+         dcr_gpu=gpu.stats.dcr, restored=restored)
+    if not (same_verdicts and same_records and same_reports and restored
+            and cpu.stats.dcr == gpu.stats.dcr):
+        fail("card and CPU runs of the port differ")
+
+
+# stream bytes per version, versions, and the largest index kernel C scans
+BASE, VERSIONS, BIG_N = 32 << 20, 4, 1 << 20
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    smi = nvidia_smi()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmul is enabled")
+    emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(dev),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+    t0 = time.perf_counter()
+    _build.lib()
+    ptxas = [ln.strip() for ln in _build.build_info.get("ptxas", "").splitlines()
+             if "registers" in ln or "Compiling entry" in ln]
+    emit("build", seconds=time.perf_counter() - t0, path=_build.build_info["path"],
+         ptxas=ptxas)
+
+    main_versions = {name: workloads.make_workload(
+        name, workloads.WorkloadConfig(base_size=BASE, versions=VERSIONS))
+        for name in ("sql_dump", "vmdk")}
+    # the main path scans each stream at its pow2 bucket (kernels/ingest.py)
+    scan_n = max(features.bucket_pow2(len(v), ingest._FLOOR_STREAM)
+                 for versions in main_versions.values() for v in versions)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = [check_gear(dev, sorted({100, 8193, BASE, scan_n}), gen),
+            check_embed(dev, gen),
+            check_topk(dev, gen, BIG_N)]
+
+    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0}
+    for name, versions in main_versions.items():
+        for k, v in main_path(name, versions).items():
+            launches[k] += v
+        device_share(name, versions[:2])
+    small = workloads.make_workload(
+        "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))
+    parity_phase(*fit_phase(small), small)
+
+    sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed, "sim_topk": sim_topk}
+    for row in rows:
+        mod = sources[row["name"]]
+        row.update(route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
+                   launches=launches[row["name"]])
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

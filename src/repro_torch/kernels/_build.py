@@ -1,0 +1,128 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process
+per source, all started together), linked into one shared library with
+a plain C interface, and loaded with ``ctypes``. The library lands in
+``build/repro_torch_kernels/`` at the root of the checkout, named by a
+hash of the sources and flags, so an edited source is never served by a
+stale build. Each build compiles and links in a directory of its own and
+renames the finished library into place, so builds that run at once
+never mix each other's objects. Building happens at the first launch,
+never at import. A failed build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the entry points: every pointer and the stream is a
+# c_void_p (a bare Python int would be cut to 32 bits)
+_SIGNATURES = {
+    "repro_windowed_sum": [_P, ctypes.c_longlong, _P, _P, _I, ctypes.c_uint,
+                           ctypes.c_uint, _P, _P, _P, _P],
+    "repro_shingle_embed_sum": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "repro_sim_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(path)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source (in parallel) and link the library; returns
+    its path. Skips the work when a library of the same digest exists."""
+    sources = _sources()
+    lib_path = BUILD_DIR / f"librepro_torch_kernels_{_digest(sources)}.so"
+    if lib_path.exists():
+        build_info.update(path=str(lib_path), seconds=0.0, cached=True)
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR, prefix=lib_path.stem + ".") as work:
+        procs = []
+        for src in sources:
+            obj = Path(work) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, _obj, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+        tmp = Path(work) / lib_path.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *[str(obj) for _, obj, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp, lib_path)
+    lib_path.with_suffix(".ptxas.log").write_text(log)
+    build_info.update(path=str(lib_path), seconds=time.perf_counter() - t0,
+                      cached=False, ptxas=log)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")

@@ -1,0 +1,158 @@
+"""Fused per-stream ingest pipeline (port of ``repro.kernels.ingest``).
+
+Two device passes per stream:
+
+    scan_stream      bytes [Spad] u8
+                       -> kernel A: windowed gear hashes [Spad] (kept on
+                          the device: StreamScan) + the two FastCDC
+                          candidate maps as ballot words (to the host,
+                          n/16 bytes in all, for boundary selection)
+    extract_stream   StreamScan + chunk offsets/lengths [Bpad]
+                       -> sub-chunk maxgear LSH [B, K] (two-tier segment
+                          max, plain torch)
+                       -> shingle ids + per-row uniquification
+                       -> kernel B: multiply-shift embed + normalise [B, M]
+
+Every dynamic extent is padded up to a power-of-two bucket — the stream
+length, the chunk count B and the longest-chunk extent Lmax — exactly as
+the reference does, and padded rows/positions are masked, so every
+integer stage is bit-identical to the reference per row.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import features as _feat
+from repro_torch.core import hashing
+from repro_torch.core.features import bucket_pow2
+from repro_torch.kernels import gear_hash, ops
+
+_FLOOR_B = 16
+_FLOOR_STREAM = 1 << 16
+
+# Positions are int64 here, but the reference indexes with int32 and
+# routes longer streams to its per-chunk host path, which the port does
+# not have yet: above this limit extract_stream raises.
+FUSED_STREAM_LIMIT = 2**31 - 2**20
+
+
+class StreamScan:
+    """Device-resident gear scan of one stream (bucket-padded, int32 hash
+    bits), with lazy host materialisation: indexes like the [n] uint32
+    numpy array of the reference."""
+
+    def __init__(self, device: torch.Tensor, n: int) -> None:
+        self.device = device            # [bucket_pow2(n)] int32 hash bits
+        self.n = n
+        self._np: np.ndarray | None = None
+
+    def asnumpy(self) -> np.ndarray:
+        if self._np is None:
+            self._np = self.device[:self.n].cpu().numpy().view(np.uint32)
+        return self._np
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, key):
+        return self.asnumpy()[key]
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.asnumpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+def scan_stream(data: np.ndarray, mask_s: int, mask_l: int,
+                device: torch.device | str
+                ) -> tuple[StreamScan, np.ndarray, np.ndarray]:
+    """The chunker scan on ``device``: returns the device-resident
+    StreamScan plus the two [n] bool candidate maps the host boundary
+    walk reads. Bytes go up and candidate words come down; the
+    4-bytes-per-position hash array never leaves the device."""
+    n = len(data)
+    spad = bucket_pow2(n, _FLOOR_STREAM)
+    host = torch.zeros(spad, dtype=torch.uint8)
+    host.numpy()[:n] = data
+    h, ws, wl = ops.scan_candidates(host.to(device), int(mask_s), int(mask_l))
+    cand_s = gear_hash.unpack_bits(ws.cpu().numpy(), n)
+    cand_l = gear_hash.unpack_bits(wl.cpu().numpy(), n)
+    return StreamScan(h, n), cand_s, cand_l
+
+
+def subchunk_maxgear(sh: torch.Tensor, offsets: torch.Tensor,
+                     lengths: torch.Tensor, k: int, lmax: int) -> torch.Tensor:
+    """Stream hashes [Spad] u32-in-int64 + chunk offsets/lengths [B] ->
+    [B, K] sub-chunk maxes (u32-in-int64).
+
+    Segment j of a length-L chunk spans [floor(j*L/k), floor((j+1)*L/k)),
+    clipped below by the 31-position gear warm-up; empty segments are 0.
+    """
+    spad = sh.shape[0]
+    dev = sh.device
+    j = torch.arange(k + 1, device=dev)
+    lens = torch.clamp(lengths, min=0)
+    bounds = (j[None, :] * lens[:, None]) // k                     # [B, K+1]
+    s_abs = offsets[:, None] + torch.clamp(bounds[:, :k], min=_feat._WARMUP)
+    e_abs = offsets[:, None] + bounds[:, 1:]                       # [B, K]
+
+    def gather(pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        vals = sh[torch.clamp(pos, 0, spad - 1)]
+        return torch.where(valid, vals, 0)
+
+    tmax = lmax // k + 1                                           # max width
+    if tmax <= 32:
+        # tiny chunks: one dense masked gather [B, K, Tmax]
+        t = torch.arange(tmax, device=dev)
+        pos = s_abs[:, :, None] + t[None, None, :]
+        return gather(pos, pos < e_abs[:, :, None]).amax(dim=-1)
+    # two-tier max: whole tiles cover each segment's interior, two
+    # <= tile-wide gathers its ragged edges (max is idempotent, so
+    # overlaps are harmless)
+    tile = min(128, max(8, bucket_pow2(int(tmax ** 0.5))))
+    ntiles = tmax // tile + 2
+    tiles = sh.reshape(-1, tile).amax(dim=-1)
+    ti0 = (s_abs + tile - 1) // tile                               # first whole
+    ti1 = e_abs // tile                                            # one past last
+    ji = torch.arange(ntiles, device=dev)
+    tidx = ti0[:, :, None] + ji[None, None, :]
+    tmask = ji[None, None, :] < (ti1 - ti0)[:, :, None]
+    interior = torch.where(
+        tmask, tiles[torch.clamp(tidx, 0, tiles.shape[0] - 1)], 0)
+    tj = torch.arange(tile, device=dev)
+    hpos = s_abs[:, :, None] + tj[None, None, :]                   # head edge
+    head = gather(hpos, hpos < torch.minimum(e_abs, ti0 * tile)[:, :, None])
+    ts = torch.maximum(s_abs, ti1 * tile)                          # tail edge
+    tpos = ts[:, :, None] + tj[None, None, :]
+    tail = gather(tpos, tpos < e_abs[:, :, None])
+    return torch.maximum(interior.amax(dim=-1),
+                         torch.maximum(head.amax(dim=-1), tail.amax(dim=-1)))
+
+
+def extract_stream(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
+                   a: torch.Tensor, b: torch.Tensor, *, k: int, n: int,
+                   lmax_floor: int = 0) -> torch.Tensor:
+    """Bucket-pad, run Algorithm 1 on the device of ``a``, slice.
+
+    ``scan`` is the stream's StreamScan from ``scan_stream`` (bucket-padded
+    hash bits). ``a``/``b`` are the multiply-shift params as int32 bits
+    [M]. Returns [B, M] float32, L2-normalised rows."""
+    dev = a.device
+    bsz = int(offsets.shape[0])
+    if bsz == 0:
+        return torch.zeros(0, int(a.shape[-1]), dtype=torch.float32, device=dev)
+    ends = np.asarray(offsets, np.int64) + np.asarray(lengths, np.int64)
+    if int(ends.max()) > FUSED_STREAM_LIMIT:
+        raise ValueError("streams past FUSED_STREAM_LIMIT need the per-chunk "
+                         "host path, which is not ported")
+    sh = hashing.from_i32_bits(scan.device.to(dev))
+    bpad = bucket_pow2(bsz, _FLOOR_B)
+    lmax = bucket_pow2(max(int(np.max(lengths)), 1), max(1, int(lmax_floor)))
+    off_p = torch.zeros(bpad, dtype=torch.int64)
+    off_p[:bsz] = torch.from_numpy(np.asarray(offsets, np.int64))
+    len_p = torch.zeros(bpad, dtype=torch.int64)
+    len_p[:bsz] = torch.from_numpy(np.asarray(lengths, np.int64))
+
+    sub = subchunk_maxgear(sh, off_p.to(dev), len_p.to(dev), k, lmax)
+    ids, mask = _feat.unique_mask(_feat.shingle_ids(sub, n))
+    return ops.shingle_embed(hashing.to_i32_bits(ids), mask, a, b)[:bsz]

@@ -1,0 +1,135 @@
+"""Public wrappers around the hand-written kernels (port of
+``repro.kernels.ops``).
+
+Dispatch is by the device of the tensor a wrapper is given, and nothing
+else: a CPU tensor takes the kernel's plain PyTorch version; a CUDA
+tensor launches the kernel, and a build or launch failure raises — there
+is no fallback. Each wrapper counts its launches in ``LAUNCHES`` (plain
+integers, incremented only where a kernel is launched), so a run can
+show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import hashing
+from repro_torch.kernels import gear_hash as _gear
+from repro_torch.kernels import shingle_embed as _shingle
+from repro_torch.kernels import sim_topk as _topk
+
+LAUNCHES: dict[str, int] = {
+    "gear_hashes": 0, "rabin_fps": 0, "scan_candidates": 0,
+    "shingle_embed": 0, "sim_topk": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """Entry-point device rule: ``None`` means the CUDA device, and asking
+    for CUDA where there is none raises instead of running on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"tensors must all be on one CPU or CUDA device, got {kinds}")
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: want contiguous {ndim}-d {dtype}, got "
+                         f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def gear_hashes(data: torch.Tensor) -> torch.Tensor:
+    """[n] uint8 byte stream -> [n] int32 windowed gear hash bits."""
+    _check(data, "data", torch.uint8, 1)
+    if not _on_cuda(data):
+        return _gear.gear_hashes_plain(data)
+    if data.shape[0] == 0:
+        return torch.empty(0, dtype=torch.int32, device=data.device)
+    LAUNCHES["gear_hashes"] += 1
+    return _gear.windowed_sum_cuda(data, hashing.GEAR_WEIGHTS, gear=True)[0]
+
+
+def rabin_fps(data: torch.Tensor, window: int = hashing.RABIN_WINDOW) -> torch.Tensor:
+    """[n] uint8 byte stream -> [n] int32 windowed polynomial fingerprint bits."""
+    _check(data, "data", torch.uint8, 1)
+    if not _on_cuda(data):
+        return _gear.rabin_fps_plain(data, window)
+    if data.shape[0] == 0:
+        return torch.empty(0, dtype=torch.int32, device=data.device)
+    LAUNCHES["rabin_fps"] += 1
+    return _gear.windowed_sum_cuda(data, hashing.poly_powers(window), gear=False)[0]
+
+
+def scan_candidates(data: torch.Tensor, mask_s: int, mask_l: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chunker scan: [n] uint8 -> (gear hash bits [n] int32, cand_s
+    words, cand_l words [ceil(n/32)] int32; see ``gear_hash.unpack_bits``)."""
+    _check(data, "data", torch.uint8, 1)
+    if not _on_cuda(data):
+        return _gear.scan_plain(data, mask_s, mask_l)
+    if data.shape[0] == 0:
+        empty = torch.empty(0, dtype=torch.int32, device=data.device)
+        return empty, empty, empty
+    LAUNCHES["scan_candidates"] += 1
+    return _gear.windowed_sum_cuda(data, hashing.GEAR_WEIGHTS, gear=True,
+                                   masks=(mask_s, mask_l))
+
+
+def shingle_embed(ids: torch.Tensor, mask: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """[B, S] int32 shingle-id bits + [B, S] bool mask, a/b [M] int32 bits
+    -> [B, M] float32 initial features (L2-normalised rows)."""
+    _check(ids, "ids", torch.int32, 2)
+    _check(mask, "mask", torch.bool, 2)
+    _check(a, "a", torch.int32, 1)
+    _check(b, "b", torch.int32, 1)
+    if mask.shape != ids.shape or a.shape != b.shape:
+        raise ValueError(f"shape mismatch: ids {tuple(ids.shape)}, mask "
+                         f"{tuple(mask.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}")
+    if not _on_cuda(ids, mask, a, b):
+        total = _shingle.shingle_embed_sum_plain(ids, mask, a, b)
+    elif ids.shape[0] == 0:
+        total = torch.zeros(0, a.shape[0], dtype=torch.float32, device=ids.device)
+    else:
+        if a.shape[0] > _shingle.MAX_M:
+            raise ValueError(f"M = {a.shape[0]} exceeds the kernel's {_shingle.MAX_M}")
+        LAUNCHES["shingle_embed"] += 1
+        total = _shingle.shingle_embed_sum_cuda(ids, mask, a, b)
+    return _shingle.mean_normalize(total, mask)
+
+
+def sim_topk(q: torch.Tensor, index: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, D] queries x [N, D] index (f32) -> (best score [B], best row [B] int32)."""
+    _check(q, "q", torch.float32, 2)
+    _check(index, "index", torch.float32, 2)
+    if q.shape[1] != index.shape[1] or index.shape[0] == 0:
+        raise ValueError(f"bad shapes: q {tuple(q.shape)}, index {tuple(index.shape)}")
+    if not _on_cuda(q, index):
+        return _topk.sim_topk_plain(q, index)
+    if q.shape[0] == 0:
+        return (torch.empty(0, dtype=torch.float32, device=q.device),
+                torch.empty(0, dtype=torch.int32, device=q.device))
+    if q.shape[1] > _topk.MAX_D:
+        raise ValueError(f"D = {q.shape[1]} exceeds the kernel's {_topk.MAX_D}")
+    LAUNCHES["sim_topk"] += 1
+    return _topk.sim_topk_cuda(q, index)
