@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each (phases 3b and 7 are the LM slice):
   1. device   the card's name and power limit (nvidia-smi), the torch and
               CUDA versions; TF32 must be off;
   2. build    nvcc builds every kernel in src/repro_torch/kernels/csrc
@@ -11,6 +11,10 @@ Phases, one JSON line each:
   3. kernel   each kernel against its plain PyTorch version on the card,
               at the main path's shapes, with kernel, plain and
               library-call times and the bound;
+  3b. attn_kernel  kernel D (flash attention) against its plain version
+              at granite-8b's heads (f32 and bf16, causal, ragged and
+              non-causal Tq != Tk), then its time at the prefill shape
+              beside the plain version, SDPA and the bound;
   4. main     CARD ingest end to end (DedupStore on the card) over
               sql_dump and vmdk, 32 MiB x 4 versions: fit, ingest,
               SHA-256-identical restore, stage times, DCR and the launch
@@ -20,12 +24,20 @@ Phases, one JSON line each:
               same init and batch stream (per-step loss, transform);
   6. parity   the port on the card and on the CPU over kernel-workload
               streams, under one model: identical verdicts, records,
-              per-stream counts and DCR.
+              per-stream counts and DCR;
+  7. lm       granite-8b at full width and depth in bf16 (seeded random
+              weights): a 32,768-token Model.prefill through kernel D
+              (36 launches, kernel time, peak memory); serve_loop at
+              batch 4, prompt 64, 64 new tokens, and a profiled short
+              serve_loop for decode's device busy share; and, at depth 4 in f32,
+              prefill's last logits against token-by-token decode_step.
 Then the nvidia-smi line, the kernels summary line, and the result line.
 Exits non-zero on any mismatch and when there is no CUDA device.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -41,15 +53,22 @@ import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.api.store import DedupStore, chunk_with  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import chunking, context_model, features, hashing, pipeline  # noqa: E402
 from repro_torch.data import workloads  # noqa: E402
-from repro_torch.kernels import _build, gear_hash, ingest, ops, shingle_embed, sim_topk  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build, flash_attn, gear_hash, ingest, ops, shingle_embed, sim_topk)
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import make_model  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): device memory
-# rate and fp32 outside the tensor cores, used for each kernel's bound
-# (the kernels do fp32 and 32-bit integer work on the scalar ALUs).
+# rate, fp32 outside the tensor cores (kernels A-C do fp32 and 32-bit
+# integer work on the scalar ALUs) and bf16 on the tensor cores (kernel
+# D's bound: the least time for attention's FLOPs on this card, whatever
+# units the kernel uses).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 FEAT = features.FeatureConfig(k=32, m=64, n=2)
 MODEL = context_model.ContextModelConfig(m=64, d=50, steps=150)
@@ -91,9 +110,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float, flop_rate: float = FP32_FLOP_PER_S
+          ) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -229,6 +249,89 @@ def check_topk(dev, gen, big_n: int) -> dict:
     return out
 
 
+# --- phase 3b: kernel D against its plain version ------------------------------
+
+# the LM slice's configuration; kernel D is checked at its heads, over
+# these (Tq, Tk, causal) and the tolerances of
+# tests/test_kernels.py::TestFlashAttention
+LM = get_config("granite-8b")
+ATTN_CHECKS = [(2048, 2048, True), (4096, 4096, True), (4097, 4097, True),
+               (1000, 3000, False)]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 is also held to one bf16 ulp (at most 2**-7 of the value) plus the
+# f32 tolerance: kernel and plain version both compute in f32 and round the
+# output once, so they differ by at most one rounding step
+BF16_ULP = 2.0 ** -7
+
+
+def attn_inputs(tq: int, tk: int, dtype, dev, gen):
+    """Model layout [1, T, H, hd] q and [1, T, KV, hd] k, v."""
+    mk = lambda t, h: torch.randn(1, t, h, LM.head_dim, device=dev, generator=gen).to(dtype)
+    return mk(tq, LM.num_heads), mk(tk, LM.num_kv_heads), mk(tk, LM.num_kv_heads)
+
+
+def attn_plain(q, k, v, causal):
+    t = lambda x: x.transpose(1, 2)
+    return t(flash_attn.flash_attention_plain(t(q), t(k), t(v), causal))
+
+
+def attn_err(got, want, dtype, what: str) -> tuple[float, float]:
+    """(max abs error, the largest share of the tightest bound used); fails
+    the run on a mismatch."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    tol = ATTN_TOL[dtype]
+    rtol, atol = (BF16_ULP, ATTN_TOL[torch.float32]) if dtype == torch.bfloat16 else (tol, tol)
+    err, used = float(diff.max()), float((diff / (atol + rtol * want.abs())).max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol) or used > 1:
+        fail(f"flash_attention != plain at {what} (max abs err {err}, "
+             f"{used} of the bound rtol {rtol} atol {atol})")
+    return err, used
+
+
+def check_attn(dev, gen, t_main: int) -> dict:
+    errs, used = {}, {}
+    for dtype in ATTN_TOL:
+        for tq, tk, causal in ATTN_CHECKS:
+            q, k, v = attn_inputs(tq, tk, dtype, dev, gen)
+            got = ops.flash_attention(q, k, v, causal)
+            torch.cuda.synchronize()
+            want = attn_plain(q, k, v, causal)
+            name = f"{str(dtype)[6:]}_{tq}x{tk}_{'causal' if causal else 'full'}"
+            errs[name], used[name] = attn_err(got, want, dtype, name)
+            del q, k, v, got, want
+    # times at the prefill's shape and dtype (B 1, T = the prefill length, bf16)
+    # and its output there against the plain version's, from the timed calls
+    q, k, v = attn_inputs(t_main, t_main, torch.bfloat16, dev, gen)
+    outs = {}
+    ms = time_ms(lambda: outs.update(kernel=ops.flash_attention(q, k, v, True)),
+                 reps=3, warmup=1)
+    plain_ms = time_ms(lambda: outs.update(plain=attn_plain(q, k, v, True)),
+                       reps=1, warmup=1)
+    main_name = f"bfloat16_{t_main}x{t_main}_causal"
+    errs[main_name], used[main_name] = attn_err(outs["kernel"], outs["plain"],
+                                                torch.bfloat16, main_name)
+    del outs
+    t = lambda x: x.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        t(q), t(k), t(v), is_causal=True, enable_gqa=True), reps=5, warmup=2)
+    moved = 2 * (2 * q.numel() + k.numel() + v.numel())          # q, k, v, o in bf16
+    flops = 2.0 * 2.0 * LM.num_heads * t_main * t_main * LM.head_dim / 2    # causal half
+    b_ms, b_by = bound(moved, flops, BF16_FLOP_PER_S)
+    err_f32 = max(e for n, e in errs.items() if n.startswith("float32"))
+    shape = [1, t_main, LM.num_heads, LM.num_kv_heads, LM.head_dim]
+    emit("attn_kernel", name="flash_attention", checks=errs, bound_used=used,
+         tol={str(k)[6:]: v for k, v in ATTN_TOL.items()}, bf16_ulp_rtol=BF16_ULP,
+         shape=shape, max_abs_err=errs[main_name],
+         dtype="bfloat16", kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+         bound_ms=b_ms, bound_by=b_by, bound_rate="989e12 bf16 FLOP/s",
+         kernel_tflop_per_s=flops / ms / 1e9)
+    del q, k, v
+    return dict(name="flash_attention", max_abs_err=errs[main_name], max_abs_err_f32=err_f32,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=shape)
+
+
 # --- phase 4: the main path ----------------------------------------------------
 
 def card_detector(device) -> pipeline.CARDDetector:
@@ -273,30 +376,35 @@ def main_path(name: str, versions: list[bytes]) -> dict[str, int]:
     return per_kernel
 
 
-def device_share(name: str, versions: list[bytes]) -> None:
-    """Device busy share of one ingest (the second version of ``name``):
-    kernel and copy time summed by torch.profiler over the host wall time
-    (one stream, so device rows never overlap)."""
+def profile_device(fn) -> tuple[float, float, dict]:
+    """(host wall seconds of ``fn``, device seconds, the top device rows in
+    ms): kernel and copy time summed by torch.profiler (one stream, so
+    device rows never overlap). ``fn`` synchronizes before it returns."""
     from torch.profiler import ProfilerActivity, profile
-    store = DedupStore(card_detector(None), CHUNKER)
-    store.fit(versions[:1])
-    store.ingest(versions[0])
-    store._clock()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        store.ingest(versions[1])
-        wall = store._clock() - t0
+        fn()
+        wall = time.perf_counter() - t0
     # device-side rows only (kernels, copies): an operator's row repeats
     # the device time of the kernels it launched
     dev_rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
     device_s = sum(e.self_device_time_total for e in dev_rows) / 1e6
     if device_s <= 0:
-        fail(f"{name}: the profiler recorded no device time")
+        fail("the profiler recorded no device time")
     top = sorted(dev_rows, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return wall, device_s, {e.key: e.self_device_time_total / 1e3 for e in top}
+
+
+def device_share(name: str, versions: list[bytes]) -> None:
+    """Device busy share of one ingest (the second version of ``name``)."""
+    store = DedupStore(card_detector(None), CHUNKER)
+    store.fit(versions[:1])
+    store.ingest(versions[0])
+    store._clock()
+    wall, device_s, top = profile_device(lambda: (store.ingest(versions[1]), store._clock()))
     emit("profile", workload=name, base_mib=BASE / 2**20, wall_s=wall,
-         device_s=device_s, device_busy_share=device_s / wall,
-         top_device_ms={e.key: e.self_device_time_total / 1e3 for e in top})
+         device_s=device_s, device_busy_share=device_s / wall, top_device_ms=top)
 
 
 # --- phases 5 and 6: the card's fit, then card / CPU parity ------------------
@@ -374,6 +482,112 @@ def parity_phase(cpu: DedupStore, gpu: DedupStore, versions: list[bytes]) -> Non
         fail("card and CPU runs of the port differ")
 
 
+# --- phase 7: the LM slice ------------------------------------------------------
+
+# prefill_32k's length (configs/base.py LM_SHAPES), cut from global batch
+# 32 to one prompt on one card; the serving batch; the parity run
+PREFILL_LEN = 32_768
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 64
+PROFILE_PROMPT, PROFILE_GEN = 8, 16
+PARITY_LAYERS, PARITY_LEN, PARITY_TOL = 4, 256, 1e-3
+
+
+def timed_prefill(model, tokens) -> tuple[torch.Tensor, float, float]:
+    """(last logits, wall seconds, ms inside kernel D by CUDA events around
+    each launch)."""
+    events = []
+    real = flash_attn.flash_attention_cuda
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    flash_attn.flash_attention_cuda = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        flash_attn.flash_attention_cuda = real
+    return logits, wall, sum(s.elapsed_time(e) for s, e in events)
+
+
+def lm_phase(dev) -> int:
+    """granite-8b at full width and depth; returns kernel D's launches in
+    the 32k prefill (the slice's main path)."""
+    cfg = LM
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t0 = time.perf_counter()
+    model = make_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    model.prefill(torch.randint(0, cfg.vocab_size, (1, 512), device=dev, generator=gen))
+
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), device=dev, generator=gen)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    logits, wall, attn_ms = timed_prefill(model, tokens)
+    launches = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(logits.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"prefill logits are not finite [1, {cfg.vocab_size}]")
+    emit("lm", part="prefill", arch=cfg.name, params=n_params, dtype=cfg.dtype,
+         tokens=PREFILL_LEN, init_s=init_s, seconds=wall, tokens_per_s=PREFILL_LEN / wall,
+         flash_attention_launches=launches, flash_attention_ms=attn_ms,
+         flash_attention_share=attn_ms / 1e3 / wall, peak_bytes=peak,
+         logits_abs_max=float(logits.float().abs().max()))
+    if launches != cfg.num_layers:
+        fail(f"prefill launched kernel D {launches} times, want {cfg.num_layers}")
+
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+                            generator=gen)
+    out, prefill_s, decode_s = serve.serve_loop(model, prompts, SERVE_GEN)
+    emit("lm", part="serve", batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+         prefill_s=prefill_s, decode_s=decode_s,
+         prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_s,
+         decode_tokens_per_s=SERVE_BATCH * SERVE_GEN / decode_s,
+         first_tokens=out[:, :8].tolist())
+    if out.shape != (SERVE_BATCH, SERVE_GEN) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        fail(f"serve_loop gave tokens of shape {out.shape} or outside the vocabulary")
+    # where a decode step's time goes: a short profiled serve_loop (the
+    # profiler adds host time; the device time per step is its own)
+    steps = PROFILE_PROMPT + PROFILE_GEN
+    wall, device_s, top = profile_device(
+        lambda: serve.serve_loop(model, prompts[:, :PROFILE_PROMPT], PROFILE_GEN))
+    emit("lm", part="decode_profile", batch=SERVE_BATCH, steps=steps, wall_s=wall,
+         device_s=device_s, device_busy_share=device_s / wall,
+         device_ms_per_step=device_s / steps * 1e3,
+         unprofiled_ms_per_step=decode_s / SERVE_GEN * 1e3, top_device_ms=top)
+    del model, logits
+    torch.cuda.empty_cache()
+
+    # the card's version of tests/test_archs_smoke.py:108: kernel D's path
+    # against the dense cached path, full width, depth cut, f32, TF32 off
+    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS, dtype="float32")
+    model = make_model(small, seed=1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PARITY_LEN), device=dev, generator=gen)
+    pre = model.prefill(tokens)
+    cache = model.init_cache(1, PARITY_LEN)
+    for i in range(PARITY_LEN):
+        step, cache = model.decode_step(tokens[:, i:i + 1], cache)
+    err = float((pre - step).abs().max())
+    emit("lm", part="parity", layers=PARITY_LAYERS, tokens=PARITY_LEN, dtype="float32",
+         max_abs_err=err, logits_abs_max=float(step.abs().max()), tol=PARITY_TOL)
+    if not torch.allclose(pre, step, rtol=PARITY_TOL, atol=PARITY_TOL):
+        fail(f"prefill (kernel D) != token-by-token decode (max abs err {err})")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 # stream bytes per version, versions, and the largest index kernel C scans
 BASE, VERSIONS, BIG_N = 32 << 20, 4, 1 << 20
 
@@ -408,7 +622,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = [check_gear(dev, sorted({100, 8193, BASE, scan_n}), gen),
             check_embed(dev, gen),
-            check_topk(dev, gen, BIG_N)]
+            check_topk(dev, gen, BIG_N),
+            check_attn(dev, gen, PREFILL_LEN)]
 
     launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0}
     for name, versions in main_versions.items():
@@ -418,8 +633,13 @@ def main() -> int:
     small = workloads.make_workload(
         "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))
     parity_phase(*fit_phase(small), small)
+    del main_versions, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["flash_attention"] = lm_phase(dev)
 
-    sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed, "sim_topk": sim_topk}
+    sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed, "sim_topk": sim_topk,
+               "flash_attention": flash_attn}
     for row in rows:
         mod = sources[row["name"]]
         row.update(route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,

@@ -2,16 +2,19 @@
 
 ``context_model_from_params`` builds the port's context model from the
 reference's trained ``w [M, D]`` and ``u [D, M]`` (``pinv(U)`` is
-recomputed here). ``check_constants`` asserts that the port's own copies
-of the hashing constants equal arrays taken from the reference, which
-catches drift between the two packages.
+recomputed here). ``lm_params_from_jax`` builds the port's dense LM from
+the reference's param tree. ``check_constants`` asserts that the port's
+own copies of the hashing constants equal arrays taken from the
+reference, which catches drift between the two packages.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import context_model, hashing
+from repro_torch.models.transformer import Model
 
 
 def context_model_from_params(w: np.ndarray, u: np.ndarray,
@@ -35,3 +38,40 @@ def check_constants(gear_table: np.ndarray, ms_a: np.ndarray, ms_b: np.ndarray) 
     if not (np.array_equal(np.asarray(ms_a, np.uint32), a)
             and np.array_equal(np.asarray(ms_b, np.uint32), b)):
         raise AssertionError("multiply-shift params differ from the reference's")
+
+
+def lm_params_from_jax(params: dict, cfg: ModelConfig,
+                       device: str | torch.device | None = None) -> Model:
+    """The port's ``Model`` holding the reference's dense-LM params.
+
+    ``params`` is the reference's tree with numpy leaves (any float dtype;
+    bf16 goes through f32 exactly): ``embed`` [V, d], ``lm_head`` [d, V],
+    ``final_norm.scale`` [d], and ``blocks[0]``, the one period-position of
+    a dense stack, with every leaf stacked over the L layers (``ln1``,
+    ``attn.wq/wk/wv/wo``, ``ln2``, ``mlp.*``). Raises on a missing leaf or
+    a shape that does not fit ``cfg``."""
+    model = Model(cfg, device=device)
+    if len(params["blocks"]) != 1:
+        raise ValueError(f"want one stacked period-position, got {len(params['blocks'])}")
+    stack = params["blocks"][0]
+    leaves = {"embed": params["embed"], "final_norm.scale": params["final_norm"]["scale"]}
+    if "lm_head" in params:
+        leaves["lm_head"] = params["lm_head"]
+    for group, sub in stack.items():
+        for name, arr in sub.items():
+            arr = np.asarray(arr)
+            if arr.shape[:1] != (cfg.num_layers,):
+                raise ValueError(f"blocks[0].{group}.{name}: leading axis "
+                                 f"{arr.shape[:1]} is not L = {cfg.num_layers}")
+            for i in range(cfg.num_layers):
+                leaves[f"blocks.{i}.{group}.{name}"] = arr[i]
+    own = dict(model.named_parameters())
+    if set(leaves) != set(own):
+        raise ValueError(f"param trees differ: missing {sorted(set(own) - set(leaves))}, "
+                         f"unexpected {sorted(set(leaves) - set(own))}")
+    for name, arr in leaves.items():
+        arr = np.array(arr, np.float32)
+        if arr.shape != tuple(own[name].shape):
+            raise ValueError(f"{name}: shape {arr.shape}, want {tuple(own[name].shape)}")
+        own[name].copy_(torch.from_numpy(arr))
+    return model

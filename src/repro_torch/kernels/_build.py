@@ -37,6 +37,8 @@ _SIGNATURES = {
                            ctypes.c_uint, _P, _P, _P, _P],
     "repro_shingle_embed_sum": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "repro_sim_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,80 @@
+"""Kernel D: blockwise online-softmax attention — the CUDA launcher and
+its plain version.
+
+The launcher takes the model layout ([B, T, H, hd], contiguous), which is
+what ``models.layers`` produces, so no transpose surrounds a launch. The
+plain version takes the reference kernel's layout, q [B, H, Tq, hd] and
+k/v [B, KV, Tk, hd]. Both compute what ``_flash_kernel`` computes: scale
+1/sqrt(hd) on q, GQA by index (query head h reads KV head h // (H/KV)),
+the start-aligned causal mask ``kpos <= qpos``, f32 statistics and
+products, and ``acc / max(l, 1e-20)`` cast to the input dtype. Source:
+``csrc/flash_attn.cu``; replaces ``repro/kernels/flash_attn.py:69``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+REPLACES = "src/repro/kernels/flash_attn.py:69"
+MAX_HD = 128
+NEG = -1e30
+# f32 score elements one block of query rows of the plain version may
+# hold (2 GiB), so a 32k-token prefill's scores never exist at once
+PLAIN_SCORE_ELEMS = 1 << 29
+
+
+def scale_of(hd: int) -> float:
+    """The q scale, computed as the reference does (float64, then f32)."""
+    return float(1.0 / np.sqrt(hd))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """q [B, H, Tq, hd], k/v [B, KV, Tk, hd] -> [B, H, Tq, hd] in q's dtype.
+
+    Scores are materialised in f32, one block of query rows at a time
+    (at most ``PLAIN_SCORE_ELEMS`` of them); the softmax is the exact one,
+    exp(s - max) over its sum, so it is the same function as the online
+    schedule of the kernel."""
+    b, h, tq, hd = q.shape
+    kvh, tk = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf = (q.float() * scale_of(hd)).reshape(b, kvh, g, tq, hd)
+    kt = k.float().transpose(-1, -2)                      # [B, KV, hd, Tk]
+    vf = v.float()
+    kpos = torch.arange(tk, device=q.device)
+    rows = max(1, PLAIN_SCORE_ELEMS // (b * h * tk))
+    out = torch.empty(b, kvh, g, tq, hd, dtype=q.dtype, device=q.device)
+    for r0 in range(0, tq, rows):
+        r1 = min(tq, r0 + rows)
+        s = qf[:, :, :, r0:r1].reshape(b, kvh, g * (r1 - r0), hd) @ kt
+        s = s.view(b, kvh, g, r1 - r0, tk)
+        if causal:
+            qpos = torch.arange(r0, r1, device=q.device)
+            s.masked_fill_(kpos[None, :] > qpos[:, None], NEG)
+        p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()    # in place: s is a fresh block
+        den = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+        o = (p.view(b, kvh, g * (r1 - r0), tk) @ vf).view(b, kvh, g, r1 - r0, hd)
+        out[:, :, :, r0:r1] = (o / den).to(q.dtype)
+        del s, p, o
+    return out.view(b, h, tq, hd)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool) -> torch.Tensor:
+    """Launch kernel D on model-layout tensors (checked by the caller)."""
+    b, tq, h, hd = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _build.lib().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kvh, tq, tk,
+        hd, int(causal), int(q.dtype == torch.bfloat16), ctypes.c_float(scale_of(hd)),
+        stream)
+    _build.check(err, "repro_flash_attention")
+    return o

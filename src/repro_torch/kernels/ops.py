@@ -13,13 +13,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import hashing
+from repro_torch.kernels import flash_attn as _fa
 from repro_torch.kernels import gear_hash as _gear
 from repro_torch.kernels import shingle_embed as _shingle
 from repro_torch.kernels import sim_topk as _topk
 
 LAUNCHES: dict[str, int] = {
     "gear_hashes": 0, "rabin_fps": 0, "scan_candidates": 0,
-    "shingle_embed": 0, "sim_topk": 0,
+    "shingle_embed": 0, "sim_topk": 0, "flash_attention": 0,
 }
 
 
@@ -133,3 +134,26 @@ def sim_topk(q: torch.Tensor, index: torch.Tensor
         raise ValueError(f"D = {q.shape[1]} exceeds the kernel's {_topk.MAX_D}")
     LAUNCHES["sim_topk"] += 1
     return _topk.sim_topk_cuda(q, index)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Model layout: q [B, Tq, H, hd], k/v [B, Tk, KV, hd] (H % KV == 0),
+    contiguous, all f32 or all bf16 -> [B, Tq, H, hd] in that dtype."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name}: want float32 or bfloat16, got {t.dtype}")
+        _check(t, name, q.dtype, 4)
+    b, tq, h, hd = q.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd or q.numel() == 0
+            or k.numel() == 0 or h % k.shape[2] != 0):
+        raise ValueError(f"bad shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} (want H % KV == 0, none empty)")
+    if not _on_cuda(q, k, v):
+        out = _fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2), causal)
+        return out.transpose(1, 2).contiguous()
+    if hd > _fa.MAX_HD:
+        raise ValueError(f"hd = {hd} exceeds the kernel's {_fa.MAX_HD}")
+    LAUNCHES["flash_attention"] += 1
+    return _fa.flash_attention_cuda(q, k, v, causal)

@@ -1,0 +1,2 @@
+"""Language-model scaffold, dense family (port of ``repro.models``)."""
+from repro_torch.models.transformer import Model, make_model  # noqa: F401

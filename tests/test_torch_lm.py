@@ -1,0 +1,244 @@
+"""The dense-LM slice of the port (configs, layers, transformer, serving,
+convert) against the JAX package on the CPU: granite-8b ``reduced()`` (4
+layers, d 128, 4 heads, 1 KV head) in f32, with the reference's params
+carried across by ``convert.lm_params_from_jax``.
+
+Tolerances, each from a measured max error on these inputs (logits of
+magnitude up to 4.3):
+- f32 logits, ``F32_TOL`` = 5e-5 absolute. Measured: forward 6.1e-6,
+  prefill 3.5e-6, 10 decode steps 2.9e-6, the port's prefill against its
+  own decode 3.0e-6 — an 8x margin over the largest. The two packages sum
+  in other orders (XLA's dots against torch's), nothing more.
+- bf16, the attention sublayer at 2e-2 (rtol and atol, as
+  ``tests/test_archs_smoke.py``): measured at most 0.31 of that bound
+  (one bf16 ulp at outputs up to 3.2), a 3x margin. A whole bf16 forward
+  is not held to 2e-2: the reference's dense attention rounds q * scale
+  and the probabilities to bf16, kernel D keeps them in f32 (as the Pallas
+  kernel does), and over 4 layers both bf16 forwards drift ~0.06 from the
+  f32 function (measured 0.058 for the reference, 0.062 for the port). So
+  the whole bf16 forward is held to that: no further from the f32 logits
+  than twice the reference's own bf16 distance.
+- greedy ``serve_loop`` tokens: equal.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS
+from repro.configs import get_config as ref_get_config
+from repro.launch import serve as ref_serve
+from repro.models import layers as ref_layers
+from repro.models import make_model as ref_make_model
+from repro_torch import convert
+from repro_torch.configs import base as configs
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models import Model, make_model
+from repro_torch.models import layers
+
+torch.set_num_threads(1)
+
+F32_TOL = 5e-5
+BF16_TOL = 2e-2
+
+
+def _cfgs(dtype):
+    ref = dataclasses.replace(ref_get_config("granite-8b").reduced(), dtype=dtype)
+    return ref, configs.ModelConfig(**dataclasses.asdict(ref))
+
+
+def _pair(dtype, seed=0):
+    """(reference config, model, params) and the port's model holding them."""
+    ref_cfg, cfg = _cfgs(dtype)
+    ref = ref_make_model(ref_cfg)
+    params = ref.init(jax.random.PRNGKey(seed))
+    leaves = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), params)
+    return ref_cfg, ref, params, convert.lm_params_from_jax(leaves, cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def f32():
+    return _pair("float32")
+
+
+@pytest.fixture(scope="module")
+def tokens():
+    return np.random.default_rng(0).integers(0, 512, (2, 40))
+
+
+@pytest.fixture(scope="module")
+def ref_forward(f32, tokens):
+    _, ref, params, _ = f32
+    fwd = jax.jit(lambda p, t: ref.forward(p, t, remat=False)[0])
+    return np.asarray(fwd(params, jnp.asarray(tokens)))
+
+
+def test_config_copy_matches_the_reference():
+    port = configs.get_config("granite-8b")
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref_get_config("granite-8b"))
+    assert port.head_dim == 128 and port.reduced().num_kv_heads == 1
+    for arch in ARCH_IDS:
+        ref = ref_get_config(arch)
+        mine = configs.ModelConfig(**dataclasses.asdict(ref))
+        assert mine.param_count() == ref.param_count(), arch
+        assert dataclasses.asdict(mine.reduced()) == dataclasses.asdict(ref.reduced()), arch
+    assert configs.get_shape("prefill_32k").seq_len == 32_768
+
+
+@pytest.mark.parametrize("fraction,positions", [(1.0, "1d"), (0.5, "2d"), (0.0, "1d")])
+def test_rope_matches_reference(fraction, positions):
+    """Full, partial (chatglm's 2D RoPE) and no rotary; [T] and [B, T]
+    positions (the decode path's). Measured max error 2.4e-7; held to
+    2e-6, an 8x margin."""
+    x = np.random.default_rng(4).standard_normal((2, 9, 3, 16)).astype(np.float32)
+    pos = np.arange(100, 109) if positions == "1d" else np.full((2, 9), 37)
+    want = ref_layers.apply_rope(jnp.asarray(x), jnp.asarray(pos), fraction, 1e4)
+    got = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), fraction, 1e4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6)
+
+
+def test_rope_uploads_its_frequencies_once_per_device():
+    """A decode step runs RoPE twice per layer; a copy from host memory on
+    each call would drain the stream every time on the card."""
+    layers._freqs_on.cache_clear()
+    x = torch.zeros(1, 3, 2, 16)
+    for pos in range(4):
+        layers.apply_rope(x, torch.full((1, 3), pos), 1.0, 1e4)
+    assert layers._freqs_on.cache_info().misses == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-130m", "whisper-base",
+                                  "jamba-v0.1-52b", "llama-3.2-vision-11b"])
+def test_unported_archs_raise(arch):
+    with pytest.raises(NotImplementedError):
+        configs.get_config(arch)
+    cfg = configs.ModelConfig(**dataclasses.asdict(ref_get_config(arch).reduced()))
+    with pytest.raises(NotImplementedError):
+        Model(cfg, device="cpu")
+
+
+def test_forward_matches_reference(f32, tokens, ref_forward):
+    port = f32[3]
+    got = port(torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, ref_forward, rtol=0, atol=F32_TOL)
+
+
+def test_prefill_matches_reference(f32, tokens):
+    _, ref, params, port = f32
+    want = np.asarray(jax.jit(ref.prefill)(params, jnp.asarray(tokens)))
+    got = port.prefill(torch.from_numpy(tokens)).numpy()
+    assert got.shape == (2, 512)
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_TOL)
+
+
+def test_decode_steps_match_reference(f32, tokens):
+    _, ref, params, port = f32
+    cache, mine = ref.init_cache(2, 16), port.init_cache(2, 16)
+    dec = jax.jit(ref.decode_step)
+    for i in range(10):
+        want, cache = dec(params, jnp.asarray(tokens[:, i:i + 1]), cache)
+        got, mine = port.decode_step(torch.from_numpy(tokens[:, i:i + 1]), mine)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
+        assert mine["pos"] == int(cache["pos"]) == i + 1
+
+
+def test_prefill_matches_own_decode(f32, tokens, ref_forward):
+    """Kernel D's path (teacher forcing) == the dense cached path, step by
+    step (after tests/test_archs_smoke.py::test_attention_prefill_matches_decode)."""
+    port = f32[3]
+    full = port(torch.from_numpy(tokens)).numpy()
+    cache = port.init_cache(2, 16)
+    for i in range(10):
+        logit, cache = port.decode_step(torch.from_numpy(tokens[:, i:i + 1]), cache)
+        np.testing.assert_allclose(logit.numpy(), full[:, i], rtol=0, atol=F32_TOL)
+
+
+def test_greedy_serve_loop_tokens_equal_reference(f32):
+    _, ref, params, port = f32
+    prompts = np.random.default_rng(1).integers(0, 512, (3, 12))
+    want, _, _ = ref_serve.serve_loop(ref, params, jnp.asarray(prompts), 16)
+    got, prefill_s, decode_s = serve.serve_loop(port, torch.from_numpy(prompts), 16)
+    assert got.shape == (3, 16) and prefill_s > 0 and decode_s > 0
+    assert np.array_equal(got, want)
+
+
+def test_sampled_serve_loop_is_seeded(f32):
+    port = f32[3]
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(0, 512, (2, 4)))
+    runs = [serve.serve_loop(port, prompts, 8, temperature=1.0,
+                             generator=torch.Generator().manual_seed(s))[0]
+            for s in (5, 5, 6)]
+    assert np.array_equal(runs[0], runs[1]) and not np.array_equal(runs[0], runs[2])
+    assert ((runs[0] >= 0) & (runs[0] < 512)).all()
+
+
+@pytest.fixture(scope="module")
+def bf16():
+    return _pair("bfloat16")
+
+
+def test_bf16_attention_sublayer_matches_reference(bf16):
+    ref_cfg, _, params, port = bf16
+    x = np.random.default_rng(3).standard_normal((2, 40, 128)).astype(np.float32)
+    layer0 = jax.tree_util.tree_map(lambda a: a[0], params["blocks"][0]["attn"])
+    want, _ = ref_layers.attention(layer0, jnp.asarray(x, jnp.bfloat16), ref_cfg)
+    got = port.blocks[0].attn(torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_bf16_forward_is_as_close_to_f32_as_the_reference(bf16, tokens):
+    ref_cfg, ref, params, port = bf16
+    want = np.asarray(ref.forward(params, jnp.asarray(tokens), remat=False)[0], np.float32)
+    f32_ref = ref_make_model(dataclasses.replace(ref_cfg, dtype="float32"))
+    up = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), params)
+    truth = np.asarray(f32_ref.forward(up, jnp.asarray(tokens), remat=False)[0])
+    got = port(torch.from_numpy(tokens)).float().numpy()
+    assert np.abs(got - truth).max() <= 2 * np.abs(want - truth).max()
+
+
+def test_serve_main_runs_on_the_cpu(capsys):
+    assert serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "4", "--gen", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=granite-8b-reduced" in out and "decode  3 steps" in out
+
+
+def test_model_without_a_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_model(_cfgs("float32")[1])
+
+
+def test_prefill_goes_through_the_kernel_wrapper(f32, tokens, monkeypatch):
+    """Every attention sublayer of a prefill calls ops.flash_attention
+    once (on the CPU that is the plain version, and no launch is counted);
+    decode calls it never."""
+    port = f32[3]
+    calls = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+    ops.reset_launches()
+    port.prefill(torch.from_numpy(tokens))
+    assert calls == [(2, 40, 4, 32)] * 4
+    port.decode_step(torch.from_numpy(tokens[:, :1]), port.init_cache(2, 4))
+    assert len(calls) == 4 and ops.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("fault", ["shape", "layers", "missing"])
+def test_lm_params_from_jax_rejects_a_wrong_tree(f32, fault):
+    params = jax.tree_util.tree_map(np.asarray, f32[2])
+    if fault == "shape":
+        params["blocks"][0]["attn"]["wq"] = params["blocks"][0]["attn"]["wq"][:, :, :2]
+    elif fault == "layers":
+        params["blocks"][0]["mlp"]["w_up"] = params["blocks"][0]["mlp"]["w_up"][:3]
+    else:
+        del params["lm_head"]
+    with pytest.raises(ValueError):
+        convert.lm_params_from_jax(params, _cfgs("float32")[1], device="cpu")
