@@ -7,30 +7,38 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
   1. device   the card's name and power limit (nvidia-smi), the torch and
               CUDA versions; TF32 must be off;
   2. build    nvcc builds every kernel in src/repro_torch/kernels/csrc
-              (seconds and ptxas register lines);
+              (seconds, ptxas register and spill lines, and the HGMMA,
+              HMMA and FFMA counts of each flash kernel's SASS: the
+              tensor-core kernel must hold HGMMA);
   3. kernel   each kernel against its plain PyTorch version on the card,
               at the main path's shapes, with kernel, plain and
               library-call times and the bound;
-  3b. attn_kernel  kernel D (flash attention) against its plain version
-              at granite-8b's heads (f32 and bf16, causal, ragged and
-              non-causal Tq != Tk), then its time at the prefill shape
-              beside the plain version, SDPA and the bound;
+  3b. attn_kernel  kernel D (flash attention) against its plain version,
+              each check on the route dtype and hd give it (bf16 at hd 64
+              or 128 on the tensor cores, f32 and hd 100 on the SIMT
+              kernel): granite-8b's heads, causal, ragged, causal and
+              non-causal Tq != Tk, hd 64, batch 2; then the tensor-core
+              kernel timed at the prefill shape beside the SIMT kernel,
+              the plain version, SDPA and the bound;
   4. main     CARD ingest end to end (DedupStore on the card) over
               sql_dump and vmdk, 32 MiB x 4 versions: fit, ingest,
-              SHA-256-identical restore, stage times, DCR and the launch
-              count of each kernel, which must all be > 0; then a
-              profiled ingest ("profile") for the device busy share;
+              SHA-256-identical restore, stage times, DCR (which must be
+              the JAX package's) and the launch count of each kernel,
+              which must all be > 0; then a profiled ingest ("profile")
+              for the device busy share;
   5. fit      the card's context-model fit against a CPU fit from the
               same init and batch stream (per-step loss, transform);
   6. parity   the port on the card and on the CPU over kernel-workload
               streams, under one model: identical verdicts, records,
-              per-stream counts and DCR;
+              per-stream counts and DCR; then ("tf32") the same ingest on
+              the card with TF32 turned on: identical verdicts;
   7. lm       granite-8b at full width and depth in bf16 (seeded random
               weights): a 32,768-token Model.prefill through kernel D
-              (36 launches, kernel time, peak memory); serve_loop at
-              batch 4, prompt 64, 64 new tokens, and a profiled short
-              serve_loop for decode's device busy share; and, at depth 4 in f32,
-              prefill's last logits against token-by-token decode_step.
+              (36 launches, all on the tensor cores; kernel time, peak
+              memory); serve_loop at batch 4, prompt 64, 64 new tokens,
+              and a profiled short serve_loop for decode's device busy
+              share; and, at depth 4 in f32, prefill's last logits against
+              token-by-token decode_step.
 Then the nvidia-smi line, the kernels summary line, and the result line.
 Exits non-zero on any mismatch and when there is no CUDA device.
 """
@@ -41,6 +49,8 @@ import gc
 import hashlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -251,12 +261,24 @@ def check_topk(dev, gen, big_n: int) -> dict:
 
 # --- phase 3b: kernel D against its plain version ------------------------------
 
-# the LM slice's configuration; kernel D is checked at its heads, over
-# these (Tq, Tk, causal) and the tolerances of
-# tests/test_kernels.py::TestFlashAttention
+# the LM slice's configuration; kernel D is checked at its heads over the
+# shapes below and the tolerances of tests/test_kernels.py::TestFlashAttention
 LM = get_config("granite-8b")
-ATTN_CHECKS = [(2048, 2048, True), (4096, 4096, True), (4097, 4097, True),
-               (1000, 3000, False)]
+# (name, B, Tq, Tk, H, KV, hd, causal): Tq 2048 / 4096 / 4097 causal and
+# 1000 x 3000 non-causal at granite's heads, the start-aligned causal
+# Tq != Tk case, granite's heads at hd 64, and a batch of 2. Each runs in
+# bf16 (the tensor-core route) and in f32 (the SIMT route)
+ATTN_CHECKS = [
+    ("2048x2048_causal", 1, 2048, 2048, 32, 8, 128, True),
+    ("4096x4096_causal", 1, 4096, 4096, 32, 8, 128, True),
+    ("4097x4097_causal", 1, 4097, 4097, 32, 8, 128, True),
+    ("1000x3000_full", 1, 1000, 3000, 32, 8, 128, False),
+    ("100x260_causal", 1, 100, 260, 32, 8, 128, True),
+    ("hd64_1000x1000_causal", 1, 1000, 1000, 32, 8, 64, True),
+    ("b2_2048x2048_causal", 2, 2048, 2048, 32, 8, 128, True),
+]
+# hd 100 (a head dim TMA's 128-byte boxes do not take): the SIMT route in both dtypes
+SIMT_ONLY_CHECKS = [("hd100_70x70_causal", 1, 70, 70, 32, 8, 100, True)]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16 is also held to one bf16 ulp (at most 2**-7 of the value) plus the
 # f32 tolerance: kernel and plain version both compute in f32 and round the
@@ -264,10 +286,10 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BF16_ULP = 2.0 ** -7
 
 
-def attn_inputs(tq: int, tk: int, dtype, dev, gen):
-    """Model layout [1, T, H, hd] q and [1, T, KV, hd] k, v."""
-    mk = lambda t, h: torch.randn(1, t, h, LM.head_dim, device=dev, generator=gen).to(dtype)
-    return mk(tq, LM.num_heads), mk(tk, LM.num_kv_heads), mk(tk, LM.num_kv_heads)
+def attn_inputs(b: int, tq: int, tk: int, h: int, kv: int, hd: int, dtype, dev, gen):
+    """Model layout [B, Tq, H, hd] q and [B, Tk, KV, hd] k, v."""
+    mk = lambda t, n: torch.randn(b, t, n, hd, device=dev, generator=gen).to(dtype)
+    return mk(tq, h), mk(tk, kv), mk(tk, kv)
 
 
 def attn_plain(q, k, v, causal):
@@ -289,28 +311,65 @@ def attn_err(got, want, dtype, what: str) -> tuple[float, float]:
     return err, used
 
 
+def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
+    """HGMMA (wgmma), HMMA (mma.sync) and FFMA instructions in the SASS of
+    each flash-attention kernel of the built library (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "flash_attn" in m.group(1) else None
+            if name:
+                counts[name] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
+        elif name:
+            for op in counts[name]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return counts
+
+
 def check_attn(dev, gen, t_main: int) -> dict:
-    errs, used = {}, {}
-    for dtype in ATTN_TOL:
-        for tq, tk, causal in ATTN_CHECKS:
-            q, k, v = attn_inputs(tq, tk, dtype, dev, gen)
+    """Each route of kernel D against the plain version at every check it
+    takes, then both routes, the plain version and SDPA timed at the
+    prefill's shape (B 1, T = the prefill length, granite's heads, bf16)."""
+    checks = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, tq, tk, h, kv, hd, causal in ATTN_CHECKS + SIMT_ONLY_CHECKS:
+            q, k, v = attn_inputs(b, tq, tk, h, kv, hd, dtype, dev, gen)
+            before = dict(ops.LAUNCHES)
             got = ops.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
-            want = attn_plain(q, k, v, causal)
-            name = f"{str(dtype)[6:]}_{tq}x{tk}_{'causal' if causal else 'full'}"
-            errs[name], used[name] = attn_err(got, want, dtype, name)
-            del q, k, v, got, want
-    # times at the prefill's shape and dtype (B 1, T = the prefill length, bf16)
-    # and its output there against the plain version's, from the timed calls
-    q, k, v = attn_inputs(t_main, t_main, torch.bfloat16, dev, gen)
+            sm90 = ops.LAUNCHES["flash_attention_sm90"] - before["flash_attention_sm90"]
+            route = "sm90" if sm90 else "simt"
+            if (ops.LAUNCHES["flash_attention"] != before["flash_attention"] + 1
+                    or route != flash_attn.route(dtype, hd)):
+                fail(f"flash_attention took route {route} for {dtype} at {name}")
+            err, used = attn_err(got, attn_plain(q, k, v, causal), dtype, name)
+            checks.append(dict(name=name, dtype=str(dtype)[6:], route=route,
+                               shape=[b, tq, tk, h, kv, hd], causal=causal,
+                               max_abs_err=err, bound_used=used))
+            del q, k, v, got
+
+    q, k, v = attn_inputs(1, t_main, t_main, LM.num_heads, LM.num_kv_heads, LM.head_dim,
+                          torch.bfloat16, dev, gen)
     outs = {}
-    ms = time_ms(lambda: outs.update(kernel=ops.flash_attention(q, k, v, True)),
-                 reps=3, warmup=1)
+    before = ops.LAUNCHES["flash_attention_sm90"]
+    ms = time_ms(lambda: outs.update(sm90=ops.flash_attention(q, k, v, True)),
+                 reps=10, warmup=2)
+    if ops.LAUNCHES["flash_attention_sm90"] - before != 12:
+        fail("the prefill-shape timing did not run the tensor-core route")
+    # the SIMT kernel on the same inputs: kernel D's earlier time
+    simt_ms = time_ms(lambda: outs.update(simt=flash_attn.flash_attention_cuda(q, k, v, True)),
+                      reps=1, warmup=1)
     plain_ms = time_ms(lambda: outs.update(plain=attn_plain(q, k, v, True)),
                        reps=1, warmup=1)
-    main_name = f"bfloat16_{t_main}x{t_main}_causal"
-    errs[main_name], used[main_name] = attn_err(outs["kernel"], outs["plain"],
-                                                torch.bfloat16, main_name)
+    main_name = f"{t_main}x{t_main}_causal"
+    err, used = attn_err(outs["sm90"], outs["plain"], torch.bfloat16, main_name)
+    simt_err, simt_used = attn_err(outs["simt"], outs["plain"], torch.bfloat16, "simt " + main_name)
     del outs
     t = lambda x: x.transpose(1, 2)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -318,21 +377,31 @@ def check_attn(dev, gen, t_main: int) -> dict:
     moved = 2 * (2 * q.numel() + k.numel() + v.numel())          # q, k, v, o in bf16
     flops = 2.0 * 2.0 * LM.num_heads * t_main * t_main * LM.head_dim / 2    # causal half
     b_ms, b_by = bound(moved, flops, BF16_FLOP_PER_S)
-    err_f32 = max(e for n, e in errs.items() if n.startswith("float32"))
     shape = [1, t_main, LM.num_heads, LM.num_kv_heads, LM.head_dim]
-    emit("attn_kernel", name="flash_attention", checks=errs, bound_used=used,
+    emit("attn_kernel", name="flash_attention", checks=checks,
          tol={str(k)[6:]: v for k, v in ATTN_TOL.items()}, bf16_ulp_rtol=BF16_ULP,
-         shape=shape, max_abs_err=errs[main_name],
-         dtype="bfloat16", kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-         bound_ms=b_ms, bound_by=b_by, bound_rate="989e12 bf16 FLOP/s",
-         kernel_tflop_per_s=flops / ms / 1e9)
+         shape=shape, dtype="bfloat16", route="sm90", max_abs_err=err, bound_used=used,
+         kernel_ms=ms, simt_ms=simt_ms, simt_max_abs_err=simt_err, simt_bound_used=simt_used,
+         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+         bound_rate="989e12 bf16 FLOP/s", kernel_tflop_per_s=flops / ms / 1e9,
+         # Q.K^T once and P.V twice (P hi and lo): the FLOPs the tensor cores do
+         tensor_core_tflop_per_s=1.5 * flops / ms / 1e9, simt_tflop_per_s=flops / simt_ms / 1e9)
     del q, k, v
-    return dict(name="flash_attention", max_abs_err=errs[main_name], max_abs_err_f32=err_f32,
+    err_f32 = max(c["max_abs_err"] for c in checks if c["dtype"] == "float32")
+    return dict(name="flash_attention", max_abs_err=err, max_abs_err_f32=err_f32,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=shape)
+                library_ms=lib_ms, shape=shape, simt_ms=simt_ms,
+                simt_source=flash_attn.SOURCE_SIMT)
 
 
 # --- phase 4: the main path ----------------------------------------------------
+
+# The JAX package's DCR at this configuration (32 MiB x 4 versions, seed
+# 1234, FEAT, MODEL, CHUNKER, threshold 0.3), from its CPU run, to six
+# decimals. The port's context model starts from the reference's own
+# init at these widths (core/fixtures), so the card must give the same.
+REFERENCE_DCR = {"sql_dump": 4.129564, "vmdk": 5.681883}
+
 
 def card_detector(device) -> pipeline.CARDDetector:
     return pipeline.CARDDetector(feat_cfg=FEAT, model_cfg=MODEL, threshold=0.3,
@@ -367,8 +436,11 @@ def main_path(name: str, versions: list[bytes]) -> dict[str, int]:
                    "score": st.score_seconds, "observe": st.observe_seconds,
                    "delta": st.delta_seconds, "store": st.store_seconds},
          chunks=st.chunks, dup=st.dup_chunks, delta=st.delta_chunks,
-         raw=st.raw_chunks, dcr=st.dcr, restored="sha256-identical",
+         raw=st.raw_chunks, dcr=st.dcr, dcr_reference=REFERENCE_DCR[name],
+         init_source=store.detector.model.init_source, restored="sha256-identical",
          launches=per_kernel, wrapper_launches=launches)
+    if round(st.dcr, 6) != REFERENCE_DCR[name]:
+        fail(f"{name}: DCR {st.dcr} is not the reference's {REFERENCE_DCR[name]}")
     if min(per_kernel.values()) <= 0:
         fail(f"{name}: a kernel was never launched on the main path: {per_kernel}")
     if not (st.dcr > 1.0 and st.delta_chunks > 0):
@@ -480,6 +552,29 @@ def parity_phase(cpu: DedupStore, gpu: DedupStore, versions: list[bytes]) -> Non
     if not (same_verdicts and same_records and same_reports and restored
             and cpu.stats.dcr == gpu.stats.dcr):
         fail("card and CPU runs of the port differ")
+    tf32_phase(gpu, versions, v_gpu)
+
+
+def tf32_phase(gpu: DedupStore, versions: list[bytes], want: list) -> None:
+    """The same ingest on the card, under the same model, with TF32 turned
+    on globally: the verdicts must not move (the verdict products pin full
+    fp32, core/similarity.exact_matmul). TF32 is off again afterwards."""
+    store = DedupStore(card_detector(None), CHUNKER)
+    store.detector.model = gpu.detector.model
+    store.detector.lmax_floor = gpu.detector.lmax_floor
+    got = record_verdicts(store.detector)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for v in versions:
+            store.ingest(v)
+        still_on = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    same = len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
+    emit("tf32", workload="kernel", versions=len(versions), verdicts_identical=same,
+         tf32_still_on_after=still_on, dcr=store.stats.dcr)
+    if not (same and still_on):
+        fail("verdicts with TF32 on differ from those with it off, or the flag was not restored")
 
 
 # --- phase 7: the LM slice ------------------------------------------------------
@@ -492,22 +587,25 @@ PROFILE_PROMPT, PROFILE_GEN = 8, 16
 PARITY_LAYERS, PARITY_LEN, PARITY_TOL = 4, 256, 1e-3
 
 
-def timed_prefill(model, tokens) -> tuple[torch.Tensor, float, float]:
-    """(last logits, wall seconds, ms inside kernel D by CUDA events around
-    each launch)."""
-    events = []
-    real = flash_attn.flash_attention_cuda
+def timed_prefill(model, tokens) -> tuple[torch.Tensor, float, dict[str, float]]:
+    """(last logits, wall seconds, ms inside kernel D by route: CUDA events
+    around each launch of whichever kernel the prefill takes)."""
+    events = {"sm90": [], "simt": []}
+    real = {"sm90": flash_attn.flash_attention_sm90_cuda, "simt": flash_attn.flash_attention_cuda}
 
-    def timed(*args):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(*args)
-        end.record()
-        events.append((start, end))
-        return out
+    def timed(route):
+        def launch(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[route](*args)
+            end.record()
+            events[route].append((start, end))
+            return out
+        return launch
 
-    flash_attn.flash_attention_cuda = timed
+    flash_attn.flash_attention_sm90_cuda = timed("sm90")
+    flash_attn.flash_attention_cuda = timed("simt")
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -515,13 +613,14 @@ def timed_prefill(model, tokens) -> tuple[torch.Tensor, float, float]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        flash_attn.flash_attention_cuda = real
-    return logits, wall, sum(s.elapsed_time(e) for s, e in events)
+        flash_attn.flash_attention_sm90_cuda = real["sm90"]
+        flash_attn.flash_attention_cuda = real["simt"]
+    return logits, wall, {r: sum(s.elapsed_time(e) for s, e in ev) for r, ev in events.items()}
 
 
 def lm_phase(dev) -> int:
     """granite-8b at full width and depth; returns kernel D's launches in
-    the 32k prefill (the slice's main path)."""
+    the 32k prefill (the slice's main path), all on the tensor cores."""
     cfg = LM
     gen = torch.Generator(device=dev).manual_seed(3)
     t0 = time.perf_counter()
@@ -536,16 +635,20 @@ def lm_phase(dev) -> int:
     ops.reset_launches()
     logits, wall, attn_ms = timed_prefill(model, tokens)
     launches = ops.LAUNCHES["flash_attention"]
+    sm90_launches = ops.LAUNCHES["flash_attention_sm90"]
     peak = torch.cuda.max_memory_allocated(dev)
     if tuple(logits.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"prefill logits are not finite [1, {cfg.vocab_size}]")
+    total_ms = sum(attn_ms.values())
     emit("lm", part="prefill", arch=cfg.name, params=n_params, dtype=cfg.dtype,
          tokens=PREFILL_LEN, init_s=init_s, seconds=wall, tokens_per_s=PREFILL_LEN / wall,
-         flash_attention_launches=launches, flash_attention_ms=attn_ms,
-         flash_attention_share=attn_ms / 1e3 / wall, peak_bytes=peak,
+         flash_attention_launches=launches, flash_attention_sm90_launches=sm90_launches,
+         flash_attention_ms=total_ms, flash_attention_ms_by_route=attn_ms,
+         flash_attention_share=total_ms / 1e3 / wall, peak_bytes=peak,
          logits_abs_max=float(logits.float().abs().max()))
-    if launches != cfg.num_layers:
-        fail(f"prefill launched kernel D {launches} times, want {cfg.num_layers}")
+    if launches != cfg.num_layers or sm90_launches != cfg.num_layers:
+        fail(f"prefill launched kernel D {launches} times, {sm90_launches} on the tensor "
+             f"cores; want all {cfg.num_layers} on the tensor cores")
 
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
                             generator=gen)
@@ -607,10 +710,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.lib()
+    build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.build_info.get("ptxas", "").splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
-    emit("build", seconds=time.perf_counter() - t0, path=_build.build_info["path"],
-         ptxas=ptxas)
+             if re.search(r"registers|Compiling entry|spill|C7512", ln)]
+    sass = sass_counts(_build.build_info["path"])
+    emit("build", seconds=build_s, cached=_build.build_info["cached"],
+         path=_build.build_info["path"], ptxas=ptxas, flash_sass=sass)
+    hgmma = [c["HGMMA"] for name, c in sass.items() if "sm90" in name]
+    if not hgmma or min(hgmma) == 0:
+        fail(f"the tensor-core flash kernel holds no HGMMA: {sass}")
 
     main_versions = {name: workloads.make_workload(
         name, workloads.WorkloadConfig(base_size=BASE, versions=VERSIONS))

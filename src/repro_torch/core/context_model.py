@@ -12,14 +12,18 @@ initial feature, with Adam (b1 0.9, b2 0.95, eps 1e-8, no weight decay —
 the update of the reference's ``optim.adamw``).
 
 The reference draws its init from ``jax.random``, which torch cannot
-replay: the port draws its own from a ``torch.Generator`` seeded with
-``cfg.seed``, and ``fit`` also accepts initial params. The batch-index
-stream is numpy ``PCG64(cfg.seed)``, as in the reference, so it replays
-exactly.
+replay. At the (m, d, seed) that the port ships a fixture for
+(``fixtures/``, written by ``scripts/make_context_init.py``), the default
+init is the reference's own ``init_params``, bit for bit; elsewhere the
+port draws its own from a ``torch.Generator`` seeded with ``cfg.seed``.
+``ContextModel.init_source`` says which, and ``fit`` also accepts initial
+params. The batch-index stream is numpy ``PCG64(cfg.seed)``, as in the
+reference, so it replays exactly.
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -41,6 +45,22 @@ class ContextModelConfig:
     seed: int = 0
 
 
+FIXTURES = Path(__file__).resolve().parent / "fixtures"
+
+
+def reference_init(cfg: ContextModelConfig) -> tuple[np.ndarray, np.ndarray] | None:
+    """The reference's initial (w [m, d], u [d, m]) for ``cfg``'s widths and
+    seed, where the port ships them; else None."""
+    stem = f"context_init_m{cfg.m}_d{cfg.d}_seed{cfg.seed}"
+    paths = [FIXTURES / f"{stem}.{name}.npy" for name in ("w", "u")]
+    if not all(p.exists() for p in paths):
+        return None
+    w, u = (np.load(p) for p in paths)
+    if w.shape != (cfg.m, cfg.d) or u.shape != (cfg.d, cfg.m):
+        raise ValueError(f"{stem}: shapes {w.shape}, {u.shape}")
+    return w, u
+
+
 def make_training_pairs(features: torch.Tensor, k: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """(ctx_mean [T, M], target [T, M]) from the stream-ordered feature seq.
@@ -60,7 +80,12 @@ def make_training_pairs(features: torch.Tensor, k: int
 
 
 class ContextModel(nn.Module):
-    """Train-then-predict context model: ``w [M, D]``, ``u [D, M]``."""
+    """Train-then-predict context model: ``w [M, D]``, ``u [D, M]``.
+
+    ``init_source`` names where the current params came from:
+    ``"reference"`` (the shipped fixture of the reference's init),
+    ``"torch"`` (the seeded torch draw) or ``"given"`` (``set_params``,
+    ``load`` or ``fit(init=...)``)."""
 
     def __init__(self, cfg: ContextModelConfig | None = None,
                  device: str | torch.device | None = None):
@@ -75,15 +100,22 @@ class ContextModel(nn.Module):
 
     def reset_parameters(self) -> None:
         cfg = self.cfg
+        ref = reference_init(cfg)
+        if ref is not None:
+            self.set_params(*ref)
+            self.init_source = "reference"
+            return
         g = torch.Generator().manual_seed(cfg.seed)
         with torch.no_grad():
             self.w.copy_(torch.randn(cfg.m, cfg.d, generator=g) / np.sqrt(cfg.m))
             self.u.copy_(torch.randn(cfg.d, cfg.m, generator=g) / np.sqrt(cfg.d))
+        self.init_source = "torch"
 
     def set_params(self, w: np.ndarray, u: np.ndarray) -> None:
         with torch.no_grad():
             self.w.copy_(torch.from_numpy(np.array(w, np.float32)))
             self.u.copy_(torch.from_numpy(np.array(u, np.float32)))
+        self.init_source = "given"
 
     def forward(self, ctx_mean: torch.Tensor) -> torch.Tensor:
         """ctx_mean [B, M] (already the 1/2K-scaled context sum) -> out [B, M]."""

@@ -89,7 +89,7 @@ class CARDDetector:
         ext_ids, ext_scores = self.index.query(feats)
 
         # phase 2: intra-stream (earlier chunks of this stream: j < i)
-        sims = feats @ feats.T
+        sims = similarity.exact_matmul(feats, feats.T)
         upper = torch.ones(n, n, dtype=torch.bool, device=sims.device).triu()
         sims = sims.masked_fill(upper, float("-inf"))
         intra_j_t = sims.argmax(dim=1)

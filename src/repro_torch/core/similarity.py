@@ -4,7 +4,10 @@ The stored features live on the index's device in an amortised-doubling
 row buffer, so inserts are O(D) and a query sees one contiguous matrix.
 Large queries go through kernel C (``ops.sim_topk``, a tiled top-1 with a
 running max); small ones take the plain ``q @ index^T`` path, under the
-reference's gate (index >= 512 rows and batch >= 8 rows).
+reference's gate (index >= 512 rows and batch >= 8 rows). That product,
+and the detector's intra-stream ``feats @ feats^T``, go through
+``exact_matmul``: a verdict compares a score with 0.3, so it must not
+depend on whether the caller enabled TF32.
 """
 from __future__ import annotations
 
@@ -15,6 +18,38 @@ from repro_torch.kernels import ops
 
 KERNEL_MIN_ROWS = 512
 KERNEL_MIN_BATCH = 8
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full fp32 whatever the global TF32 settings.
+
+    TF32 is turned off for this product, through the API the caller set
+    it with (torch refuses to read through one API a state set through
+    the other): the legacy ``allow_tf32`` / ``set_float32_matmul_precision``,
+    or ``fp32_precision`` where this torch has it. Afterwards the legacy
+    precision and every ``fp32_precision`` it touches come back as they were."""
+    cublas = torch.backends.cuda.matmul
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:                   # set through fp32_precision only
+        legacy = None
+    knobs = []                             # (module, fp32_precision) where this torch has it
+    for mod in (cublas, getattr(torch.backends.mkldnn, "matmul", None)):
+        try:
+            knobs.append((mod, mod.fp32_precision))
+        except AttributeError:
+            pass
+    if legacy is not None:
+        cublas.allow_tf32 = False          # sets both APIs' cuBLAS state
+    else:
+        cublas.fp32_precision = "ieee"
+    try:
+        return torch.matmul(a, b)
+    finally:
+        if legacy is not None:
+            torch.set_float32_matmul_precision(legacy)
+        for mod, value in knobs:
+            mod.fp32_precision = value
 
 
 class CosineIndex:
@@ -58,7 +93,7 @@ class CosineIndex:
         if self._n >= KERNEL_MIN_ROWS and q.shape[0] >= KERNEL_MIN_BATCH:
             score, arg = ops.sim_topk(q.contiguous(), index)
         else:
-            sims = q @ index.T
+            sims = exact_matmul(q, index.T)
             arg = sims.argmax(dim=1)
             score = sims.gather(1, arg[:, None])[:, 0]
         score = score.cpu().numpy()

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "repro_sim_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P],
+    "repro_flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

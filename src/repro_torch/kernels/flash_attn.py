@@ -1,14 +1,26 @@
-"""Kernel D: blockwise online-softmax attention — the CUDA launcher and
-its plain version.
+"""Kernel D: blockwise online-softmax attention — the CUDA launchers and
+their plain version.
 
-The launcher takes the model layout ([B, T, H, hd], contiguous), which is
+The launchers take the model layout ([B, T, H, hd], contiguous), which is
 what ``models.layers`` produces, so no transpose surrounds a launch. The
 plain version takes the reference kernel's layout, q [B, H, Tq, hd] and
-k/v [B, KV, Tk, hd]. Both compute what ``_flash_kernel`` computes: scale
-1/sqrt(hd) on q, GQA by index (query head h reads KV head h // (H/KV)),
-the start-aligned causal mask ``kpos <= qpos``, f32 statistics and
-products, and ``acc / max(l, 1e-20)`` cast to the input dtype. Source:
-``csrc/flash_attn.cu``; replaces ``repro/kernels/flash_attn.py:69``.
+k/v [B, KV, Tk, hd]. All compute what ``_flash_kernel`` computes: scale
+1/sqrt(hd), GQA by index (query head h reads KV head h // (H/KV)), the
+start-aligned causal mask ``kpos <= qpos``, f32 statistics, and
+``acc / max(l, 1e-20)`` cast to the input dtype. Replaces
+``repro/kernels/flash_attn.py:69``.
+
+Two routes, chosen by dtype and hd alone (``route``), never as a fallback:
+
+- ``"sm90"``: ``csrc/flash_attn_sm90.cu``, bf16 with hd 64 or 128 (every
+  LM prefill). Products on the tensor cores (wgmma, f32 accumulation),
+  tiles brought in by TMA. The scale multiplies q·k after the product, and
+  P·V runs as ``bf16(P)·V + bf16(P - bf16(P))·V``, so the output stays
+  within one bf16 rounding step of the f32 plain version; bf16-only P
+  would not.
+- ``"simt"``: ``csrc/flash_attn.cu``, f32 at any hd up to 128 and bf16 at
+  the other hd: every product in f32 on the FMA units, the scale on q
+  before the product, as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -19,9 +31,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+SOURCE = "src/repro_torch/kernels/csrc/flash_attn_sm90.cu"
+SOURCE_SIMT = "src/repro_torch/kernels/csrc/flash_attn.cu"
 REPLACES = "src/repro/kernels/flash_attn.py:69"
 MAX_HD = 128
+SM90_HD = (64, 128)
 NEG = -1e30
 # f32 score elements one block of query rows of the plain version may
 # hold (2 GiB), so a 32k-token prefill's scores never exist at once
@@ -65,9 +79,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.view(b, h, tq, hd)
 
 
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that takes inputs of this dtype and head dim: "sm90" (the
+    tensor cores) for bf16 at hd 64 or 128, else "simt"."""
+    return "sm90" if dtype == torch.bfloat16 and hd in SM90_HD else "simt"
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool) -> torch.Tensor:
-    """Launch kernel D on model-layout tensors (checked by the caller)."""
+    """Launch the SIMT kernel on model-layout tensors (checked by the caller)."""
     b, tq, h, hd = q.shape
     tk, kvh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -77,4 +97,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         hd, int(causal), int(q.dtype == torch.bfloat16), ctypes.c_float(scale_of(hd)),
         stream)
     _build.check(err, "repro_flash_attention")
+    return o
+
+
+def flash_attention_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool) -> torch.Tensor:
+    """Launch the tensor-core kernel on model-layout tensors (checked by the
+    caller, route "sm90")."""
+    b, tq, h, hd = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _build.lib().repro_flash_attention_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kvh, tq, tk,
+        hd, int(causal), ctypes.c_float(scale_of(hd)), stream)
+    _build.check(err, "repro_flash_attention_sm90")
     return o

@@ -21,6 +21,7 @@ from repro_torch.kernels import sim_topk as _topk
 LAUNCHES: dict[str, int] = {
     "gear_hashes": 0, "rabin_fps": 0, "scan_candidates": 0,
     "shingle_embed": 0, "sim_topk": 0, "flash_attention": 0,
+    "flash_attention_sm90": 0,
 }
 
 
@@ -139,7 +140,13 @@ def sim_topk(q: torch.Tensor, index: torch.Tensor
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Model layout: q [B, Tq, H, hd], k/v [B, Tk, KV, hd] (H % KV == 0),
-    contiguous, all f32 or all bf16 -> [B, Tq, H, hd] in that dtype."""
+    contiguous, all f32 or all bf16 -> [B, Tq, H, hd] in that dtype.
+
+    On the card, dtype and hd pick the kernel (``flash_attn.route``): bf16
+    at hd 64 or 128 runs on the tensor cores (``flash_attn_sm90.cu``, also
+    counted in ``LAUNCHES["flash_attention_sm90"]``), anything else on the
+    SIMT kernel (``flash_attn.cu``). ``LAUNCHES["flash_attention"]`` counts
+    both. A launch error raises; neither kernel stands in for the other."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"{name}: want float32 or bfloat16, got {t.dtype}")
@@ -156,4 +163,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd > _fa.MAX_HD:
         raise ValueError(f"hd = {hd} exceeds the kernel's {_fa.MAX_HD}")
     LAUNCHES["flash_attention"] += 1
+    if _fa.route(q.dtype, hd) == "sm90":
+        LAUNCHES["flash_attention_sm90"] += 1
+        return _fa.flash_attention_sm90_cuda(q, k, v, causal)
     return _fa.flash_attention_cuda(q, k, v, causal)

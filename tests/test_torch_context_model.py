@@ -1,7 +1,10 @@
 """Port context model vs the JAX reference: transform with carried-over
 params (1e-5), training from the reference's init with the same batch
 indices (per-step loss to 1e-4 relative: the sums run in another
-order), one Adam step vs ``optim.adamw``, and the training pairs."""
+order), one Adam step vs ``optim.adamw``, the training pairs, and the
+shipped fixtures of the reference's init (bit for bit)."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -57,6 +60,48 @@ def test_fit_without_init_is_seeded():
     b = context_model.ContextModel(cfg, device="cpu").fit(feats)
     assert a.losses == b.losses
     assert torch.equal(a.u_pinv, b.u_pinv)
+
+
+FIXTURE_STEM = re.compile(r"context_init_m(\d+)_d(\d+)_seed(\d+)\.w\.npy")
+
+
+def test_fixtures_equal_reference_init_bit_for_bit():
+    stems = [FIXTURE_STEM.fullmatch(p.name) for p in context_model.FIXTURES.glob("*.w.npy")]
+    assert stems and all(stems)
+    assert (64, 50, 0) in [tuple(int(x) for x in m.groups()) for m in stems]
+    for m in stems:
+        cfg = ref_cm.ContextModelConfig(*(int(x) for x in m.groups()))
+        want = ref_cm.init_params(cfg)
+        got = context_model.reference_init(context_model.ContextModelConfig(
+            m=cfg.m, d=cfg.d, seed=cfg.seed))
+        for g, w in zip(got, (want.w, want.u)):
+            w = np.asarray(w)
+            assert g.dtype == w.dtype == np.float32 and g.shape == w.shape
+            assert np.array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+def test_default_init_is_the_reference_s_where_shipped():
+    cfg = context_model.ContextModelConfig(m=64, d=50)
+    model = context_model.ContextModel(cfg, device="cpu")
+    want = ref_cm.init_params(ref_cm.ContextModelConfig(m=64, d=50))
+    assert model.init_source == "reference"
+    assert np.array_equal(model.w.detach().numpy(), np.asarray(want.w))
+    assert np.array_equal(model.u.detach().numpy(), np.asarray(want.u))
+    other = context_model.ContextModel(context_model.ContextModelConfig(m=64, d=30),
+                                       device="cpu")
+    assert other.init_source == "torch"
+    other.set_params(np.zeros((64, 30), np.float32), np.zeros((30, 64), np.float32))
+    assert other.init_source == "given"
+
+
+def test_fit_from_default_init_tracks_reference_losses():
+    feats = _stream_features(t=400, seed=5)
+    ref = ref_cm.ContextModel(ref_cm.ContextModelConfig(m=64, d=50, steps=40)).fit(feats)
+    port = context_model.ContextModel(
+        context_model.ContextModelConfig(m=64, d=50, steps=40), device="cpu")
+    port.fit(torch.from_numpy(feats))
+    assert port.init_source == "reference"
+    np.testing.assert_allclose(port.losses, ref.losses, rtol=1e-4)
 
 
 def test_one_adam_step_matches_reference_adamw():

@@ -4,8 +4,10 @@ in interpret mode, its model-layout wrapper, and the jnp twin
 ``models.layers._chunked_attention`` (``q_offset=0``) — over the shapes of
 ``tests/test_kernels.py::TestFlashAttention`` (T cut to <= 300 so Pallas
 interpret mode stays fast); the wrapper's dispatch, launch counter and
-input checks; and, on a machine with an NVIDIA card, the CUDA kernel
-against its plain version.
+input checks; and, on a machine with an NVIDIA card, the CUDA kernels
+against their plain version, with the route each shape takes. The
+tensor-core route's arithmetic is held on the CPU in
+``tests/test_torch_flash_attn_sm90.py``.
 
 Tolerances are those of ``TestFlashAttention``: f32 2e-5 and bf16 2e-2.
 Measured on these inputs against the Pallas kernel: at most 4.8e-7 in
@@ -125,7 +127,7 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 4, 2, 33, 33, 16, 1))
     out = ops.flash_attention(q, k, v)
     assert out.shape == q.shape and out.dtype == q.dtype and out.is_contiguous()
-    assert ops.LAUNCHES["flash_attention"] == 0
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_sm90"] == 0
 
 
 @pytest.mark.parametrize("case", ["dtype", "mixed", "ndim", "stride", "groups",
@@ -156,20 +158,31 @@ def test_wrapper_rejects_bad_inputs(case):
 def test_cuda_kernel_matches_plain_version():
     """Kernel D against its plain version on the card, f32 and bf16, over
     the CPU shapes and granite's heads (chip_smoke.py runs the same checks
-    at full length)."""
+    at full length), with the route each shape takes: bf16 at hd 64 or 128
+    on the tensor cores (``flash_attention_sm90``), the rest on the SIMT
+    kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     ops.reset_launches()
-    shapes = SHAPES + [(1, 32, 8, 1000, 1000, 128, True), (1, 4, 4, 70, 70, 100, True)]
+    shapes = SHAPES + [(1, 32, 8, 1000, 1000, 128, True), (1, 32, 8, 1000, 1000, 64, True),
+                       (2, 32, 8, 700, 1500, 128, True), (1, 4, 4, 70, 70, 100, True)]
+    sm90 = 0
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         for b, h, kv, tq, tk, hd, causal in shapes:
             q = torch.randn(b, tq, h, hd, device=dev, generator=gen).to(dtype)
             k = torch.randn(b, tk, kv, hd, device=dev, generator=gen).to(dtype)
             v = torch.randn(b, tk, kv, hd, device=dev, generator=gen).to(dtype)
+            before = dict(ops.LAUNCHES)
             got = ops.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
+            tensor_cores = dtype == torch.bfloat16 and hd in (64, 128)
+            assert flash_attn.route(dtype, hd) == ("sm90" if tensor_cores else "simt")
+            assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+            assert (ops.LAUNCHES["flash_attention_sm90"]
+                    == before["flash_attention_sm90"] + int(tensor_cores))
+            sm90 += int(tensor_cores)
             want = flash_attn.flash_attention_plain(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal)
             torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
@@ -178,3 +191,4 @@ def test_cuda_kernel_matches_plain_version():
                 torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
                                            rtol=BF16_ULP, atol=F32_TOL)
     assert ops.LAUNCHES["flash_attention"] == 2 * len(shapes)
+    assert ops.LAUNCHES["flash_attention_sm90"] == sm90 == 4

@@ -1,6 +1,8 @@
 """End to end: the port's DedupStore (CARD over FastCDC, on the CPU) vs
 the JAX reference store with ``use_kernel=True`` (Pallas in interpret
-mode), with the reference's trained context-model params carried over.
+mode): once with the reference's trained context-model params carried
+over, once with the port fitting its own from its default init, which
+at these widths is the reference's ``init_params``.
 
 Per stream the chunk/dup/delta/raw counts and bytes stored, every
 container record, the DCR and every restored version must be equal. A
@@ -8,6 +10,8 @@ verdict may differ only where the reference's own margin — to the 0.3
 threshold or to the runner-up candidate — is below 1e-5 (float sums run
 in another order); such flips are counted and printed, at most one per
 workload, and the exact checks then apply to the streams before it."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -69,13 +73,14 @@ def _margin(entry: dict, i: int) -> float:
     return float(min(abs(cand_s[top] - THRESHOLD), cand_s[top] - runner))
 
 
-@pytest.mark.parametrize("name", ["sql_dump", "vmdk", "kernel"])
-def test_port_store_matches_reference(name):
+@functools.lru_cache(maxsize=None)
+def _reference(name):
+    """The workload's versions and the JAX store that ingested them, with
+    the verdicts it gave (shared by the tests of one workload)."""
     versions = ref_workloads.make_workload(
         name, ref_workloads.WorkloadConfig(base_size=BASE[name], versions=3))
     assert versions == workloads.make_workload(
         name, workloads.WorkloadConfig(base_size=BASE[name], versions=3))
-
     ref_det = ref_pipeline.CARDDetector(
         feat_cfg=ref_features.FeatureConfig(k=32, m=64, n=2),
         model_cfg=ref_cm.ContextModelConfig(m=64, d=50, steps=150),
@@ -85,21 +90,17 @@ def test_port_store_matches_reference(name):
     ref_seen = _capture(ref_det, snapshot_index=True)
     for v in versions:
         ref_store.ingest(v)
+    return versions, ref_det, ref_store, ref_seen
 
-    cfg = chunking.ChunkerConfig(avg_size=AVG)
-    det = pipeline.CARDDetector(
+
+def _port_detector():
+    return pipeline.CARDDetector(
         feat_cfg=features.FeatureConfig(k=32, m=64, n=2),
         model_cfg=context_model.ContextModelConfig(m=64, d=50, steps=150),
         threshold=THRESHOLD, device="cpu")
-    det.model = convert.context_model_from_params(
-        np.asarray(ref_det.model.params.w), np.asarray(ref_det.model.params.u),
-        det.model_cfg, device="cpu")
-    det.lmax_floor = cfg.max_size
-    store = DedupStore(det, cfg, device="cpu")
-    seen = _capture(det, snapshot_index=False)
-    for v in versions:
-        store.ingest(v)
 
+
+def _assert_store_matches(name, versions, ref_det, ref_store, ref_seen, det, store, seen):
     # some query must have crossed the kernel gate (index >= 512 rows)
     assert max(len(r["rows"]) for r in ref_seen) >= 512
     assert len(det.index) == len(ref_det.index)
@@ -127,6 +128,41 @@ def test_port_store_matches_reference(name):
         assert store.stats.delta_chunks > 0
     for h, v in enumerate(versions):
         assert store.restore(h) == v
+    return flips
+
+
+@pytest.mark.parametrize("name", ["sql_dump", "vmdk", "kernel"])
+def test_port_store_matches_reference(name):
+    versions, ref_det, ref_store, ref_seen = _reference(name)
+    cfg = chunking.ChunkerConfig(avg_size=AVG)
+    det = _port_detector()
+    det.model = convert.context_model_from_params(
+        np.asarray(ref_det.model.params.w), np.asarray(ref_det.model.params.u),
+        det.model_cfg, device="cpu")
+    det.lmax_floor = cfg.max_size
+    store = DedupStore(det, cfg, device="cpu")
+    seen = _capture(det, snapshot_index=False)
+    for v in versions:
+        store.ingest(v)
+    _assert_store_matches(name, versions, ref_det, ref_store, ref_seen, det, store, seen)
+
+
+@pytest.mark.parametrize("name", ["sql_dump", "vmdk", "kernel"])
+def test_port_fit_matches_reference(name):
+    """The port fits its own context model, from its default init (the
+    reference's ``init_params``, shipped as a fixture) and the same batch
+    stream: the same DCR, per-stream counts and records as the JAX store,
+    under the flip rule above."""
+    versions, ref_det, ref_store, ref_seen = _reference(name)
+    det = _port_detector()
+    assert det.model.init_source == "reference"
+    store = DedupStore(det, chunking.ChunkerConfig(avg_size=AVG), device="cpu")
+    store.fit(versions[:1])
+    np.testing.assert_allclose(det.model.losses, ref_det.model.losses, rtol=1e-4)
+    seen = _capture(det, snapshot_index=False)
+    for v in versions:
+        store.ingest(v)
+    _assert_store_matches(name, versions, ref_det, ref_store, ref_seen, det, store, seen)
 
 
 def test_sessions_and_restore():
