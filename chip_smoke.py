@@ -7,12 +7,17 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
   1. device   the card's name and power limit (nvidia-smi), the torch and
               CUDA versions; TF32 must be off;
   2. build    nvcc builds every kernel in src/repro_torch/kernels/csrc
-              (seconds, ptxas register and spill lines, and the HGMMA,
-              HMMA and FFMA counts of each flash kernel's SASS: the
-              tensor-core kernel must hold HGMMA);
+              (seconds, ptxas register and spill lines, the HGMMA, HMMA
+              and FFMA counts of each flash kernel's SASS: the tensor-core
+              kernel must hold HGMMA; and the FFMA and shared-memory load
+              counts of each top-1 kernel's SASS);
   3. kernel   each kernel against its plain PyTorch version on the card,
               at the main path's shapes, with kernel, plain and
-              library-call times and the bound;
+              library-call times and the bound: kernel A bit-exact at
+              sizes across a thread's run, a block and the halo, timed at
+              the main path's scan length and at the 64 MiB bucket, with
+              Rabin; kernel C's argmax exact at B 4097, D 16 / 50 / 64 /
+              256, its ties and padding, timed at N 16,384 and 2^20;
   3b. attn_kernel  kernel D (flash attention) against its plain version,
               each check on the route dtype and hd give it (bf16 at hd 64
               or 128 on the tensor cores, f32 and hd 100 on the SIMT
@@ -129,7 +134,23 @@ def bound(bytes_moved: float, flops: float, flop_rate: float = FP32_FLOP_PER_S
 
 # --- phase 3: kernels against their plain versions -----------------------------
 
-def check_gear(dev, sizes, gen) -> dict:
+def time_gear(data, n: int) -> dict:
+    """Kernel A (the fused scan) and its plain version at one length, with
+    the bound: bytes, each input byte read and each hash and candidate
+    word written; operations, the serial gear recurrence h = (h << 1) + g
+    (2 a position) and two mask tests (2 each), at the scalar-ALU rate."""
+    mask_s, mask_l = CHUNKER.mask_s, CHUNKER.mask_l
+    ms = time_ms(lambda: ops.scan_candidates(data, mask_s, mask_l))
+    plain_ms = time_ms(lambda: gear_hash.scan_plain(data, mask_s, mask_l), reps=3, warmup=1)
+    b_ms, b_by = bound(n + 4 * n + 2 * 4 * gear_hash.num_words(n), 6.0 * n)
+    return dict(n=n, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_gear(dev, sizes, gen, main_n: int, bucket_n: int) -> dict:
+    """Kernel A bit-exact against its plain version at every size (hashes,
+    both candidate maps, gear alone, Rabin at W 48 and 16), then timed at
+    the main path's scan length and at the 64 MiB pow2 bucket the main
+    path scanned before, with Rabin at W 48 beside it."""
     mask_s, mask_l = CHUNKER.mask_s, CHUNKER.mask_l
     for n in sizes:
         data = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev, generator=gen)
@@ -140,22 +161,21 @@ def check_gear(dev, sizes, gen) -> dict:
             fail(f"scan_candidates != plain at n={n}")
         if not torch.equal(ops.gear_hashes(data), gear_hash.gear_hashes_plain(data)):
             fail(f"gear_hashes != plain at n={n}")
-        if not torch.equal(ops.rabin_fps(data), gear_hash.rabin_fps_plain(data, hashing.RABIN_WINDOW)):
-            fail(f"rabin_fps != plain at n={n}")
-    n = sizes[-1]
-    ms = time_ms(lambda: ops.scan_candidates(data, mask_s, mask_l))
-    plain_ms = time_ms(lambda: gear_hash.scan_plain(data, mask_s, mask_l), reps=3, warmup=1)
-    rabin_ms = time_ms(lambda: ops.rabin_fps(data))
-    # bytes: each input byte read, each hash and candidate word written;
-    # operations: the serial gear recurrence h = (h << 1) + g (2 a
-    # position) and two mask tests (2 each), at the scalar-ALU rate
-    b_ms, b_by = bound(n + 4 * n + 2 * 4 * gear_hash.num_words(n), 6.0 * n)
-    cands = int(torch.sum(ws != 0).item())
-    emit("kernel", name="gear_scan", sizes=sizes, exact=True, n=n, kernel_ms=ms,
-         plain_ms=plain_ms, rabin_ms=rabin_ms, bound_ms=b_ms, bound_by=b_by,
-         library_ms=None, nonzero_cand_words=cands)
-    return dict(name="gear_scan", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=[n])
+        for window in (hashing.RABIN_WINDOW, 16):
+            if not torch.equal(ops.rabin_fps(data, window), gear_hash.rabin_fps_plain(data, window)):
+                fail(f"rabin_fps (W {window}) != plain at n={n}")
+        del data, h, ws, wl, ph, pws, pwl
+    data = torch.randint(0, 256, (bucket_n,), dtype=torch.uint8, device=dev, generator=gen)
+    at_bucket = time_gear(data, bucket_n)
+    at_bucket["rabin_ms"] = time_ms(lambda: ops.rabin_fps(data))
+    cands = int(torch.sum(ops.scan_candidates(data, mask_s, mask_l)[1] != 0).item())
+    main = time_gear(data[:main_n], main_n)
+    emit("kernel", name="gear_scan", sizes=sizes, exact=True, rabin_windows=[48, 16],
+         **main, library_ms=None, bucket_64mib=at_bucket, nonzero_cand_words=cands)
+    return dict(name="gear_scan", max_abs_err=0.0, ms=main["kernel_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None, shape=[main_n],
+                bucket_64mib=at_bucket)
 
 
 def check_embed(dev, gen) -> dict:
@@ -234,6 +254,10 @@ def check_topk(dev, gen, big_n: int) -> dict:
     if not bool((r == 150_000).all()):
         fail("sim_topk: a tie did not go to the lowest row")
 
+    # B past a multiple of 128, and D 16, 64 and 256 (chunked) at small N
+    for b, n, dd in ((4097, 16_384, d), (4097, 5000, 16), (4097, 5000, 64), (4097, 5000, 256)):
+        q, index = unit_rows(b, dd, dev, gen), unit_rows(n, dd, dev, gen)
+        compare_topk(q, index, *ops.sim_topk(q, index))
     q = unit_rows(4096, d, dev, gen)
     out = None
     for n in (16_384, big_n):
@@ -311,24 +335,38 @@ def attn_err(got, want, dtype, what: str) -> tuple[float, float]:
     return err, used
 
 
+SASS_OPS = {"flash_attn": ("HGMMA", "HMMA", "FFMA"),
+            "sim_topk_partial": ("FFMA", "LDS", "LDS.64", "LDS.128")}
+
+
 def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
-    """HGMMA (wgmma), HMMA (mma.sync) and FFMA instructions in the SASS of
-    each flash-attention kernel of the built library (cuobjdump -sass)."""
+    """Instruction counts in the SASS of the built library (cuobjdump
+    -sass): HGMMA (wgmma), HMMA (mma.sync) and FFMA in each flash-attention
+    kernel; FFMA and shared-memory loads by width (LDS is 32-bit) in each
+    top-1 kernel, whose ratio is the inner loop's FFMA per load."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True, check=True).stdout
-    counts, name = {}, None
+    counts, name, wanted = {}, None, ()
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if "flash_attn" in m.group(1) else None
+            wanted = next((v for k, v in SASS_OPS.items() if k in m.group(1)), ())
+            name = m.group(1) if wanted else None
             if name:
-                counts[name] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
-        elif name:
-            for op in counts[name]:
-                if re.search(rf"\b{op}\b", line):
+                counts[name] = {op: 0 for op in wanted}
+        elif name and "@!PT" not in line:    # never issued: a predicate that is always false
+            for op in wanted:
+                # a load at its exact width ("LDS" is not "LDS.128"); any
+                # other op with its modifiers ("HGMMA.64x64x16...")
+                tail = r"(?![.\w])" if op.startswith("LDS") else r"\b"
+                if re.search(rf"\b{re.escape(op)}{tail}", line):
                     counts[name][op] += 1
+    for c in counts.values():
+        if "LDS" in c:
+            loads = c["LDS"] + c["LDS.64"] + c["LDS.128"]
+            c["ffma_per_lds"] = c["FFMA"] / loads if loads else None
     return counts
 
 
@@ -715,7 +753,9 @@ def main() -> int:
              if re.search(r"registers|Compiling entry|spill|C7512", ln)]
     sass = sass_counts(_build.build_info["path"])
     emit("build", seconds=build_s, cached=_build.build_info["cached"],
-         path=_build.build_info["path"], ptxas=ptxas, flash_sass=sass)
+         path=_build.build_info["path"], ptxas=ptxas,
+         flash_sass={k: v for k, v in sass.items() if "flash_attn" in k},
+         topk_sass={k: v for k, v in sass.items() if "sim_topk" in k})
     hgmma = [c["HGMMA"] for name, c in sass.items() if "sm90" in name]
     if not hgmma or min(hgmma) == 0:
         fail(f"the tensor-core flash kernel holds no HGMMA: {sass}")
@@ -723,12 +763,16 @@ def main() -> int:
     main_versions = {name: workloads.make_workload(
         name, workloads.WorkloadConfig(base_size=BASE, versions=VERSIONS))
         for name in ("sql_dump", "vmdk")}
-    # the main path scans each stream at its pow2 bucket (kernels/ingest.py)
-    scan_n = max(features.bucket_pow2(len(v), ingest._FLOOR_STREAM)
-                 for versions in main_versions.values() for v in versions)
+    # the main path scans each stream at its length rounded up to 128
+    # (kernels/ingest.scan_length); before, at its pow2 bucket (64 MiB)
+    scan_n = max(ingest.scan_length(len(v)) for versions in main_versions.values()
+                 for v in versions)
+    bucket_n = max(features.bucket_pow2(len(v)) for versions in main_versions.values()
+                   for v in versions)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = [check_gear(dev, sorted({100, 8193, BASE, scan_n}), gen),
+    rows = [check_gear(dev, sorted({1, 31, 33, 100, 8193, BASE, scan_n, bucket_n}), gen,
+                       scan_n, bucket_n),
             check_embed(dev, gen),
             check_topk(dev, gen, BIG_N),
             check_attn(dev, gen, PREFILL_LEN)]

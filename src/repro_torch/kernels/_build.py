@@ -33,8 +33,8 @@ _I = ctypes.c_int
 # C signatures of the entry points: every pointer and the stream is a
 # c_void_p (a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
-    "repro_windowed_sum": [_P, ctypes.c_longlong, _P, _P, _I, ctypes.c_uint,
-                           ctypes.c_uint, _P, _P, _P, _P],
+    "repro_windowed_sum": [_P, ctypes.c_longlong, _P, ctypes.c_uint, _I,
+                           ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P],
     "repro_shingle_embed_sum": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "repro_sim_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

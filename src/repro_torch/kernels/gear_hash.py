@@ -6,8 +6,13 @@ fused FastCDC candidate bits — the CUDA launcher and its plain version.
 Gear: taps ``1 << k`` (W = 32) over ``GEAR_TABLE[byte]``; Rabin: taps
 ``p^k`` over the raw bytes. The scan also emits the two candidate maps
 ``(h & mask_s) == 0`` and ``(h & mask_l) == 0`` as 32-bit words: bit i of
-word w is position 32w + i (a warp ballot on the card). That is not
-``np.packbits``' order; ``unpack_bits`` reads this format.
+word w is position 32w + i (on the card, the word of one thread's run
+of 32 positions). That is not ``np.packbits``' order; ``unpack_bits``
+reads this format.
+
+The kernel rolls the window, ``h_i = r * h_{i-1} + g_i - r^W * g_{i-W}``,
+which needs geometric taps ``w_k = r^k``; gear's (r = 2) and Rabin's
+(r = ``POLY_P``) are, and the launcher raises on any others.
 
 Hashes are returned as int32 tensors holding the uint32 bits.
 Source: ``csrc/gear_hash.cu``; replaces ``repro/kernels/gear_hash.py:43``.
@@ -39,7 +44,7 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_bits(words: np.ndarray, n: int) -> np.ndarray:
-    """Host inverse of the ballot layout: [ceil(n/32)] words -> [n] bool."""
+    """Host inverse of the word layout: [ceil(n/32)] words -> [n] bool."""
     raw = np.ascontiguousarray(words).astype("<u4", copy=False).view(np.uint8)
     return np.unpackbits(raw, bitorder="little")[:n].view(np.bool_)
 
@@ -64,18 +69,32 @@ def scan_plain(data: torch.Tensor, mask_s: int, mask_l: int
 
 # --- the kernel --------------------------------------------------------------
 
-# each tap set and the gear table, uploaded once per device: the C entry
-# copies them device-to-device into __constant__ memory, which never
-# waits for the host
-_ON_DEVICE: dict[tuple[torch.device, bytes], torch.Tensor] = {}
+def geometric_ratio(taps: np.ndarray) -> int:
+    """r with ``taps[k] == r**k mod 2**32`` for every k; raises otherwise.
+
+    The kernel takes (r, W) and rolls the window; a tap set that is not a
+    geometric series has no such recurrence, so it never reaches it."""
+    taps = np.asarray(taps, dtype=np.uint32)
+    if taps.ndim != 1 or taps.shape[0] == 0 or int(taps[0]) != 1:
+        raise ValueError("kernel A takes geometric taps r^k, starting at 1")
+    r = int(taps[1]) if taps.shape[0] > 1 else 0
+    want = 1
+    for k, w in enumerate(taps):
+        if int(w) != want:
+            raise ValueError(f"tap {k} is {int(w)}, not r^{k} = {want} (r = {r}): "
+                             "kernel A takes geometric taps only")
+        want = (want * r) & hashing.U32
+    return r
 
 
-def _on_device(values: np.ndarray, device: torch.device) -> torch.Tensor:
-    values = np.ascontiguousarray(values, dtype=np.uint32)
-    key = (device, values.tobytes())
-    if key not in _ON_DEVICE:
-        _ON_DEVICE[key] = torch.from_numpy(values.view(np.int32).copy()).to(device)
-    return _ON_DEVICE[key]
+# the gear table, uploaded once per device
+_ON_DEVICE: dict[torch.device, torch.Tensor] = {}
+
+
+def _gear_table(device: torch.device) -> torch.Tensor:
+    if device not in _ON_DEVICE:
+        _ON_DEVICE[device] = torch.from_numpy(hashing.GEAR_TABLE.view(np.int32).copy()).to(device)
+    return _ON_DEVICE[device]
 
 
 def windowed_sum_cuda(data: torch.Tensor, taps: np.ndarray, gear: bool,
@@ -83,11 +102,12 @@ def windowed_sum_cuda(data: torch.Tensor, taps: np.ndarray, gear: bool,
                       ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
     """Launch kernel A on ``data`` ([n] uint8, CUDA, contiguous, n > 0).
 
-    ``gear`` selects ``GEAR_TABLE[byte]`` over the raw byte; ``masks``
-    (mask_s, mask_l) adds the two candidate-word maps."""
+    ``taps`` must be geometric (``geometric_ratio``); ``gear`` selects
+    ``GEAR_TABLE[byte]`` over the raw byte; ``masks`` (mask_s, mask_l)
+    adds the two candidate-word maps."""
+    r = geometric_ratio(taps)
     n = data.shape[0]
-    taps = _on_device(taps, data.device)
-    table = _on_device(hashing.GEAR_TABLE, data.device) if gear else None
+    table = _gear_table(data.device) if gear else None
     out = torch.empty(n, dtype=torch.int32, device=data.device)
     ws = wl = None
     mask_s = mask_l = 0
@@ -97,9 +117,8 @@ def windowed_sum_cuda(data: torch.Tensor, taps: np.ndarray, gear: bool,
         wl = torch.empty_like(ws)
     stream = torch.cuda.current_stream(data.device).cuda_stream
     err = _build.lib().repro_windowed_sum(
-        data.data_ptr(), n,
-        None if table is None else table.data_ptr(), taps.data_ptr(),
-        taps.shape[0], mask_s & 0xFFFFFFFF, mask_l & 0xFFFFFFFF,
+        data.data_ptr(), n, None if table is None else table.data_ptr(), r,
+        len(taps), mask_s & 0xFFFFFFFF, mask_l & 0xFFFFFFFF,
         out.data_ptr(), None if ws is None else ws.data_ptr(),
         None if wl is None else wl.data_ptr(), stream)
     _build.check(err, "repro_windowed_sum")

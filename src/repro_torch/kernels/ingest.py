@@ -2,10 +2,10 @@
 
 Two device passes per stream:
 
-    scan_stream      bytes [Spad] u8
+    scan_stream      bytes [Spad] u8, Spad = n rounded up to SCAN_ALIGN
                        -> kernel A: windowed gear hashes [Spad] (kept on
                           the device: StreamScan) + the two FastCDC
-                          candidate maps as ballot words (to the host,
+                          candidate maps as 32-bit words (to the host,
                           n/16 bytes in all, for boundary selection)
     extract_stream   StreamScan + chunk offsets/lengths [Bpad]
                        -> sub-chunk maxgear LSH [B, K] (two-tier segment
@@ -13,10 +13,14 @@ Two device passes per stream:
                        -> shingle ids + per-row uniquification
                        -> kernel B: multiply-shift embed + normalise [B, M]
 
-Every dynamic extent is padded up to a power-of-two bucket — the stream
-length, the chunk count B and the longest-chunk extent Lmax — exactly as
-the reference does, and padded rows/positions are masked, so every
-integer stage is bit-identical to the reference per row.
+The chunk count B and the longest-chunk extent Lmax are padded up to a
+power-of-two bucket, exactly as the reference does, and padded rows are
+masked, so every integer stage is bit-identical to the reference per row.
+The stream is not: the reference buckets it so that XLA compiles once per
+bucket, but a CUDA scan takes any length, so it is padded only to
+SCAN_ALIGN, the widest tile ``subchunk_maxgear`` reshapes it into. Hashes
+past n are never read: every gather is masked by its chunk's end, and
+whole tiles end at or before it.
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ from repro_torch.core.features import bucket_pow2
 from repro_torch.kernels import gear_hash, ops
 
 _FLOOR_B = 16
-_FLOOR_STREAM = 1 << 16
+# the stream is scanned at a multiple of this: the largest `tile` of
+# subchunk_maxgear, which reshapes the hashes into rows of `tile`
+SCAN_ALIGN = 128
 
 # Positions are int64 here, but the reference indexes with int32 and
 # routes longer streams to its per-chunk host path, which the port does
@@ -38,12 +44,12 @@ FUSED_STREAM_LIMIT = 2**31 - 2**20
 
 
 class StreamScan:
-    """Device-resident gear scan of one stream (bucket-padded, int32 hash
-    bits), with lazy host materialisation: indexes like the [n] uint32
+    """Device-resident gear scan of one stream (padded to SCAN_ALIGN, int32
+    hash bits), with lazy host materialisation: indexes like the [n] uint32
     numpy array of the reference."""
 
     def __init__(self, device: torch.Tensor, n: int) -> None:
-        self.device = device            # [bucket_pow2(n)] int32 hash bits
+        self.device = device            # [scan_length(n)] int32 hash bits
         self.n = n
         self._np: np.ndarray | None = None
 
@@ -63,6 +69,12 @@ class StreamScan:
         return a if dtype is None else a.astype(dtype)
 
 
+def scan_length(n: int) -> int:
+    """Positions scanned for an n-byte stream: n rounded up to SCAN_ALIGN
+    (one tile at least)."""
+    return max(1, -(-n // SCAN_ALIGN)) * SCAN_ALIGN
+
+
 def scan_stream(data: np.ndarray, mask_s: int, mask_l: int,
                 device: torch.device | str
                 ) -> tuple[StreamScan, np.ndarray, np.ndarray]:
@@ -71,7 +83,7 @@ def scan_stream(data: np.ndarray, mask_s: int, mask_l: int,
     walk reads. Bytes go up and candidate words come down; the
     4-bytes-per-position hash array never leaves the device."""
     n = len(data)
-    spad = bucket_pow2(n, _FLOOR_STREAM)
+    spad = scan_length(n)
     host = torch.zeros(spad, dtype=torch.uint8)
     host.numpy()[:n] = data
     h, ws, wl = ops.scan_candidates(host.to(device), int(mask_s), int(mask_l))
@@ -109,7 +121,7 @@ def subchunk_maxgear(sh: torch.Tensor, offsets: torch.Tensor,
     # two-tier max: whole tiles cover each segment's interior, two
     # <= tile-wide gathers its ragged edges (max is idempotent, so
     # overlaps are harmless)
-    tile = min(128, max(8, bucket_pow2(int(tmax ** 0.5))))
+    tile = min(SCAN_ALIGN, max(8, bucket_pow2(int(tmax ** 0.5))))
     ntiles = tmax // tile + 2
     tiles = sh.reshape(-1, tile).amax(dim=-1)
     ti0 = (s_abs + tile - 1) // tile                               # first whole
@@ -134,8 +146,8 @@ def extract_stream(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
                    lmax_floor: int = 0) -> torch.Tensor:
     """Bucket-pad, run Algorithm 1 on the device of ``a``, slice.
 
-    ``scan`` is the stream's StreamScan from ``scan_stream`` (bucket-padded
-    hash bits). ``a``/``b`` are the multiply-shift params as int32 bits
+    ``scan`` is the stream's StreamScan from ``scan_stream`` (hash bits
+    padded to SCAN_ALIGN). ``a``/``b`` are the multiply-shift params as int32 bits
     [M]. Returns [B, M] float32, L2-normalised rows."""
     dev = a.device
     bsz = int(offsets.shape[0])

@@ -13,7 +13,8 @@ from repro_torch.kernels import _build
 
 SOURCE = "src/repro_torch/kernels/csrc/sim_topk.cu"
 REPLACES = "src/repro/kernels/sim_topk.py:45"
-TILE = 64        # queries per block and index rows per tile (csrc kTile)
+TILE = 128       # queries per block and index rows per tile (csrc kTile)
+BLOCKS_PER_SM = 8
 MAX_D = 256
 PLAIN_BLOCK_N = 1 << 16
 
@@ -38,14 +39,13 @@ def sim_topk_plain(q: torch.Tensor, index: torch.Tensor
     return best, arg.to(torch.int32)
 
 
-def split_plan(rows_q: int, rows_n: int, device: torch.device) -> tuple[int, int]:
-    """(splits, tiles_per_split): enough blocks to fill the card twice over
-    (about 8 resident blocks of 256 threads per SM), every split owning at
-    least one 64-row tile."""
+def split_plan(rows_q: int, rows_n: int, sm_count: int) -> tuple[int, int]:
+    """(splits, tiles_per_split) over the index's 128-row tiles: about
+    ``BLOCKS_PER_SM`` blocks a multiprocessor (two resident, so four
+    waves), every split owning at least one tile."""
     ntiles = -(-rows_n // TILE)
     qblocks = -(-rows_q // TILE)
-    target = 16 * torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(ntiles, -(-target // qblocks)))
+    want = max(1, min(ntiles, -(-BLOCKS_PER_SM * sm_count // qblocks)))
     per = -(-ntiles // want)
     return -(-ntiles // per), per
 
@@ -55,7 +55,8 @@ def sim_topk_cuda(q: torch.Tensor, index: torch.Tensor
     """Launch kernel C (inputs checked by the caller)."""
     rows_q, d = q.shape
     rows_n = index.shape[0]
-    splits, per = split_plan(rows_q, rows_n, q.device)
+    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, per = split_plan(rows_q, rows_n, sm_count)
     part_s = torch.empty(splits, rows_q, dtype=torch.float32, device=q.device)
     part_r = torch.empty(splits, rows_q, dtype=torch.int32, device=q.device)
     out_s = torch.empty(rows_q, dtype=torch.float32, device=q.device)

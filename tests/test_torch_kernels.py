@@ -163,12 +163,20 @@ def test_cuda_kernels_match_plain_versions():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     ops.reset_launches()
-    for n in (1, 100, 8193, 100_000):
+    # across a thread's run of 32, a block of 8192 and the W-1 halo
+    sizes = (1, 15, 16, 31, 32, 33, 47, 48, 100, 8191, 8193, 70_000, 100_000)
+    for n in sizes:
         data = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev, generator=gen)
         got = ops.scan_candidates(data, 0x1FFF, 0x7F)
         want = gear_hash.scan_plain(data, 0x1FFF, 0x7F)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
-        assert torch.equal(ops.rabin_fps(data, 16), gear_hash.rabin_fps_plain(data, 16))
+        assert torch.equal(ops.gear_hashes(data), want[0])
+        for window in (16, 48):
+            assert torch.equal(ops.rabin_fps(data, window),
+                               gear_hash.rabin_fps_plain(data, window))
+        # a stream that does not start 16-byte aligned takes the byte loads
+        if n > 1:
+            assert torch.equal(ops.gear_hashes(data[1:]), gear_hash.gear_hashes_plain(data[1:]))
     ids = torch.randint(-2**31, 2**31 - 1, (300, 61), dtype=torch.int32, device=dev,
                         generator=gen)
     mask = torch.rand(300, 61, device=dev, generator=gen) < 0.8
@@ -185,4 +193,53 @@ def test_cuda_kernels_match_plain_versions():
     torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-4)
     assert torch.equal(r, pr)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["scan_candidates"] == 4 and ops.LAUNCHES["sim_topk"] == 1
+    assert ops.LAUNCHES["scan_candidates"] == len(sizes) and ops.LAUNCHES["sim_topk"] == 1
+
+
+def test_sim_topk_split_plan():
+    """Every split owns at least one 128-row tile and the splits cover the
+    tiles exactly once, at the H100's 132 SMs (and other counts)."""
+    for sm_count in (132, 1, 7):
+        for rows_q in (1, 129, 4096, 4097):
+            for rows_n in (1, 127, 128, 129, 16_384, 200_000, 1 << 20):
+                splits, per = sim_topk.split_plan(rows_q, rows_n, sm_count)
+                ntiles = -(-rows_n // sim_topk.TILE)
+                owned = [min(ntiles, (k + 1) * per) - k * per for k in range(splits)]
+                assert min(owned) >= 1 and sum(owned) == ntiles
+    # the main path's shapes at 132 SMs: 32 query blocks, about 8 blocks an SM
+    assert sim_topk.split_plan(4096, 1 << 20, 132) == (33, 249)
+    assert sim_topk.split_plan(4096, 16_384, 132) == (32, 4)
+
+
+@pytest.mark.cuda
+def test_cuda_sim_topk_edges():
+    """Kernel C at the edges of its tiles, splits and D chunks, against
+    the plain version: every argmax row equal, scores within 1e-4; ties
+    within a thread, a tile and across splits go to the lowest row;
+    padded rows never win."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for b in (1, 129, 4097):
+        for n in (1, 127, 129, 200_000):
+            for d in (16, 50, 64, 256):
+                if b * n * d > 4097 * 200_000 * 50:
+                    continue
+                q = torch.randn(b, d, device=dev, generator=gen)
+                index = torch.randn(n, d, device=dev, generator=gen)
+                s, r = ops.sim_topk(q, index)
+                ps, pr = sim_topk.sim_topk_plain(q, index)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-4)
+                assert torch.equal(r, pr), (b, n, d)
+    for d in (16, 50, 64, 256):
+        q = torch.ones(9, d, device=dev)
+        # rows 3 and 35 are one thread's (tx 3), 3 and 100 one tile's, and
+        # 3, 150,000 and 199,999 lie in different splits: row 3 wins
+        index = torch.randn(200_000, d, device=dev, generator=gen) * 0.01
+        index[[3, 35, 100, 150_000, 199_999]] = 1.0
+        _, r = ops.sim_topk(q, index)
+        assert bool((r == 3).all()), d
+        _, r = ops.sim_topk(-torch.eye(4, d, device=dev), torch.eye(3, d, device=dev))
+        assert int(r.max()) < 3
