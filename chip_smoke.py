@@ -7,17 +7,21 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
   1. device   the card's name and power limit (nvidia-smi), the torch and
               CUDA versions; TF32 must be off;
   2. build    nvcc builds every kernel in src/repro_torch/kernels/csrc
-              (seconds, ptxas register and spill lines, the HGMMA, HMMA
-              and FFMA counts of each flash kernel's SASS: the tensor-core
-              kernel must hold HGMMA; and the FFMA and shared-memory load
-              counts of each top-1 kernel's SASS);
+              (seconds, ptxas registers and spills of each kernel, the
+              HGMMA, HMMA and FFMA counts of each flash kernel's SASS: the
+              tensor-core kernel must hold HGMMA; and the FFMA and
+              shared-memory load counts of each top-1 kernel's SASS);
   3. kernel   each kernel against its plain PyTorch version on the card,
               at the main path's shapes, with kernel, plain and
               library-call times and the bound: kernel A bit-exact at
               sizes across a thread's run, a block and the halo, timed at
               the main path's scan length and at the 64 MiB bucket, with
-              Rabin; kernel C's argmax exact at B 4097, D 16 / 50 / 64 /
-              256, its ties and padding, timed at N 16,384 and 2^20;
+              Rabin; kernel B (features with the mean-normalise epilogue
+              fused) at [4096, 61], M 64 and on a real sql_dump extract,
+              its quotients bit for bit against x / norm, timed beside
+              the old torch epilogue and the launch floor; kernel C's
+              argmax exact at B 4097, D 16 / 50 / 64 / 256, its ties and
+              padding, timed at N 16,384 and 2^20;
   3b. attn_kernel  kernel D (flash attention) against its plain version,
               each check on the route dtype and hd give it (bf16 at hd 64
               or 128 on the tensor cores, f32 and hd 100 on the SIMT
@@ -178,7 +182,50 @@ def check_gear(dev, sizes, gen, main_n: int, bucket_n: int) -> dict:
                 bucket_64mib=at_bucket)
 
 
-def check_embed(dev, gen) -> dict:
+def real_extract(dev, version: bytes) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B's input on one real stream, as the main path makes it:
+    the version's chunks, their sub-chunk LSH, shingle ids and
+    first-occurrence mask (``ingest.shingle_inputs``), real rows only."""
+    chunks, scan = chunk_with(CHUNKER, version, dev)
+    offs = np.asarray([c.offset for c in chunks], np.int64)
+    lens = np.asarray([c.length for c in chunks], np.int64)
+    return ingest.shingle_inputs(scan, offs, lens, dev, k=FEAT.k, n=FEAT.n,
+                                 lmax_floor=CHUNKER.max_size)
+
+
+def check_quotient(dev, gen, ids, a, b) -> int:
+    """Kernel B's division-free quotient bit for bit against IEEE x / norm
+    on the card: the norms of this run's hash vectors, every 8th float32
+    significand in [4, 8) (M 64 gives norms near 4.6) and 2^20 uniform in
+    [0.004, 12]; returns the number of pairs."""
+    v = hashing.multiply_shift_unit(hashing.from_i32_bits(ids[:2048]),
+                                    hashing.from_i32_bits(a), hashing.from_i32_bits(b))
+    sig = torch.arange(0, 1 << 23, 8, dtype=torch.int32, device=dev) | 0x40800000
+    norm = torch.cat([torch.sqrt(torch.sum(v * v, dim=-1)).reshape(-1) + 1e-12,
+                      sig.view(torch.float32) + 1e-12,
+                      torch.rand(1 << 20, device=dev, generator=gen) * 12 + 4e-3])
+    h = torch.randint(-2**31, 2**31 - 1, norm.shape, dtype=torch.int32, device=dev,
+                      generator=gen)
+    got = shingle_embed.residual_quotient_cuda(h, norm)
+    want = h.float() * 2.0**-31 / norm
+    wrong = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if wrong:
+        fail(f"shingle_embed: {wrong} of {norm.numel()} quotients differ from x / norm")
+    return norm.numel()
+
+
+def check_embed(dev, gen, real: tuple[torch.Tensor, torch.Tensor]) -> dict:
+    """Kernel B (sums, mean and normalisation in one launch) against its
+    plain version (the sums, then ``mean_normalize``) within 1e-5: at
+    [4096, 61], M 64 with random ids and four all-masked rows (exactly 0),
+    and on ``real``, one sql_dump version's extract. Its quotient bit for
+    bit (``check_quotient``). Timed beside the plain version, the torch
+    epilogue that followed the kernel before (``mean_normalize`` alone)
+    and the launch floor (a one-element ``zero_``). The bound: each id (4
+    bytes) and mask byte read once, a and b, each feature written once;
+    5 operations per unmasked (shingle, component) pair (scale,
+    square-accumulate, divide, accumulate) and 4 per output (mean,
+    square-accumulate, normalise)."""
     rows, s_len = 4096, FEAT.num_shingles
     a_np, b_np = hashing.multiply_shift_params(FEAT.m)
     a = hashing.to_i32_bits(hashing.u32_tensor(a_np, dev))
@@ -187,25 +234,38 @@ def check_embed(dev, gen) -> dict:
                         device=dev, generator=gen)
     mask = torch.rand(rows, s_len, device=dev, generator=gen) < 0.8
     mask[:4] = False                               # all-masked rows give 0
-    got = ops.shingle_embed(ids, mask, a, b)
-    want = shingle_embed.mean_normalize(
-        shingle_embed.shingle_embed_sum_plain(ids, mask, a, b), mask)
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
-        fail(f"shingle_embed != plain (max abs err {err})")
-    if float(got[:4].abs().max()) != 0.0:
-        fail("shingle_embed: an all-masked row is not 0")
-    ms = time_ms(lambda: shingle_embed.shingle_embed_sum_cuda(ids, mask, a, b), reps=50)
-    plain_ms = time_ms(lambda: shingle_embed.shingle_embed_sum_plain(ids, mask, a, b))
+    plain = lambda i, mk: shingle_embed.mean_normalize(
+        shingle_embed.shingle_embed_sum_plain(i, mk, a, b), mk)
+    errs = []
+    for name, (i, mk) in (("random", (ids, mask)), ("sql_dump extract", real)):
+        got, want = ops.shingle_embed(i, mk, a, b), plain(i, mk)
+        errs.append(float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            fail(f"shingle_embed != plain on {name} input (max abs err {errs[-1]})")
+        if name == "random" and float(got[:4].abs().max()) != 0.0:
+            fail("shingle_embed: an all-masked row is not 0")
+    pairs = check_quotient(dev, gen, ids, a, b)
+    ms = time_ms(lambda: shingle_embed.shingle_embed_cuda(ids, mask, a, b), reps=50)
+    real_ms = time_ms(lambda: shingle_embed.shingle_embed_cuda(*real, a, b), reps=50)
+    plain_ms = time_ms(lambda: plain(ids, mask))
+    total = shingle_embed.shingle_embed_sum_plain(ids, mask, a, b)
+    epilogue_ms = time_ms(lambda: shingle_embed.mean_normalize(total, mask), reps=50)
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: one.zero_(), reps=50)
     valid = int(mask.sum())
     b_ms, b_by = bound(5 * rows * s_len + 8 * FEAT.m + 4 * rows * FEAT.m,
-                       5.0 * valid * FEAT.m)
+                       5.0 * valid * FEAT.m + 4.0 * rows * FEAT.m)
+    real_shape = [real[0].shape[0], real[0].shape[1], FEAT.m]
     emit("kernel", name="shingle_embed", shape=[rows, s_len, FEAT.m],
-         max_abs_err=err, tol=1e-5, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-         bound_by=b_by, library_ms=None)
-    return dict(name="shingle_embed", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+         max_abs_err=errs[0], tol=1e-5, kernel_ms=ms, plain_ms=plain_ms,
+         old_epilogue_ms=epilogue_ms, launch_floor_ms=floor_ms, bound_ms=b_ms,
+         bound_by=b_by, library_ms=None, real_shape=real_shape,
+         real_unmasked=int(real[1].sum()), real_max_abs_err=errs[1], real_kernel_ms=real_ms,
+         quotient_pairs=pairs, quotient_bit_exact=True)
+    return dict(name="shingle_embed", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                shape=[rows, s_len, FEAT.m])
+                shape=[rows, s_len, FEAT.m], old_epilogue_ms=epilogue_ms,
+                launch_floor_ms=floor_ms, real_shape=real_shape, real_kernel_ms=real_ms)
 
 
 def library_topk(q, index, block=1 << 18):
@@ -368,6 +428,21 @@ def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
             loads = c["LDS"] + c["LDS.64"] + c["LDS.128"]
             c["ffma_per_lds"] = c["FFMA"] / loads if loads else None
     return counts
+
+
+def ptxas_summary(log: str) -> dict[str, list[int]]:
+    """[registers, spill-store bytes, spill-load bytes] of each kernel, by
+    mangled name, from the ptxas -v log of the build."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name][0] = int(m.group(1))
+    return out
 
 
 def check_attn(dev, gen, t_main: int) -> dict:
@@ -749,11 +824,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_info.get("ptxas", "").splitlines()
-             if re.search(r"registers|Compiling entry|spill|C7512", ln)]
+    log = _build.build_info.get("ptxas", "")
     sass = sass_counts(_build.build_info["path"])
     emit("build", seconds=build_s, cached=_build.build_info["cached"],
-         path=_build.build_info["path"], ptxas=ptxas,
+         path=_build.build_info["path"], ptxas=ptxas_summary(log),
+         ptxas_warnings=[ln.strip() for ln in log.splitlines() if "C7512" in ln],
          flash_sass={k: v for k, v in sass.items() if "flash_attn" in k},
          topk_sass={k: v for k, v in sass.items() if "sim_topk" in k})
     hgmma = [c["HGMMA"] for name, c in sass.items() if "sm90" in name]
@@ -773,7 +848,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = [check_gear(dev, sorted({1, 31, 33, 100, 8193, BASE, scan_n, bucket_n}), gen,
                        scan_n, bucket_n),
-            check_embed(dev, gen),
+            check_embed(dev, gen, real_extract(dev, main_versions["sql_dump"][1])),
             check_topk(dev, gen, BIG_N),
             check_attn(dev, gen, PREFILL_LEN)]
 

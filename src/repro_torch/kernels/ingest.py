@@ -11,7 +11,9 @@ Two device passes per stream:
                        -> sub-chunk maxgear LSH [B, K] (two-tier segment
                           max, plain torch)
                        -> shingle ids + per-row uniquification
-                       -> kernel B: multiply-shift embed + normalise [B, M]
+                          (``shingle_inputs``, the real rows only)
+                       -> kernel B: multiply-shift embed, mean and
+                          normalise in one launch [B, M]
 
 The chunk count B and the longest-chunk extent Lmax are padded up to a
 power-of-two bucket, exactly as the reference does, and padded rows are
@@ -141,23 +143,20 @@ def subchunk_maxgear(sh: torch.Tensor, offsets: torch.Tensor,
                          torch.maximum(head.amax(dim=-1), tail.amax(dim=-1)))
 
 
-def extract_stream(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
-                   a: torch.Tensor, b: torch.Tensor, *, k: int, n: int,
-                   lmax_floor: int = 0) -> torch.Tensor:
-    """Bucket-pad, run Algorithm 1 on the device of ``a``, slice.
-
-    ``scan`` is the stream's StreamScan from ``scan_stream`` (hash bits
-    padded to SCAN_ALIGN). ``a``/``b`` are the multiply-shift params as int32 bits
-    [M]. Returns [B, M] float32, L2-normalised rows."""
-    dev = a.device
+def shingle_inputs(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
+                   device: torch.device, *, k: int, n: int, lmax_floor: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm 1 up to kernel B on ``device``: bucket-pad, sub-chunk
+    LSH, shingle ids and their first-occurrence mask. Returns kernel B's
+    input for the real rows only: [B, S] int32 id bits, [B, S] bool mask.
+    The padded rows exist for the reference's bucketing; rows are
+    independent, so dropping them changes no real row."""
     bsz = int(offsets.shape[0])
-    if bsz == 0:
-        return torch.zeros(0, int(a.shape[-1]), dtype=torch.float32, device=dev)
     ends = np.asarray(offsets, np.int64) + np.asarray(lengths, np.int64)
     if int(ends.max()) > FUSED_STREAM_LIMIT:
         raise ValueError("streams past FUSED_STREAM_LIMIT need the per-chunk "
                          "host path, which is not ported")
-    sh = hashing.from_i32_bits(scan.device.to(dev))
+    sh = hashing.from_i32_bits(scan.device.to(device))
     bpad = bucket_pow2(bsz, _FLOOR_B)
     lmax = bucket_pow2(max(int(np.max(lengths)), 1), max(1, int(lmax_floor)))
     off_p = torch.zeros(bpad, dtype=torch.int64)
@@ -165,6 +164,21 @@ def extract_stream(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
     len_p = torch.zeros(bpad, dtype=torch.int64)
     len_p[:bsz] = torch.from_numpy(np.asarray(lengths, np.int64))
 
-    sub = subchunk_maxgear(sh, off_p.to(dev), len_p.to(dev), k, lmax)
+    sub = subchunk_maxgear(sh, off_p.to(device), len_p.to(device), k, lmax)
     ids, mask = _feat.unique_mask(_feat.shingle_ids(sub, n))
-    return ops.shingle_embed(hashing.to_i32_bits(ids), mask, a, b)[:bsz]
+    return hashing.to_i32_bits(ids[:bsz]), mask[:bsz]
+
+
+def extract_stream(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
+                   a: torch.Tensor, b: torch.Tensor, *, k: int, n: int,
+                   lmax_floor: int = 0) -> torch.Tensor:
+    """Algorithm 1 on the device of ``a``: ``shingle_inputs``, then kernel B.
+
+    ``scan`` is the stream's StreamScan from ``scan_stream`` (hash bits
+    padded to SCAN_ALIGN). ``a``/``b`` are the multiply-shift params as int32 bits
+    [M]. Returns [B, M] float32, L2-normalised rows."""
+    if offsets.shape[0] == 0:
+        return torch.zeros(0, int(a.shape[-1]), dtype=torch.float32, device=a.device)
+    ids, mask = shingle_inputs(scan, offsets, lengths, a.device, k=k, n=n,
+                               lmax_floor=lmax_floor)
+    return ops.shingle_embed(ids, mask, a, b)

@@ -1,11 +1,13 @@
-"""Kernel B: shingle -> M-dim feature embedding sum (paper Algorithm 1,
-step 5) — the CUDA launcher and its plain version.
+"""Kernel B: shingle -> M-dim initial features (paper Algorithm 1, step
+5) — the CUDA launcher and its plain version.
 
-    out[b, :] = sum_s mask[b,s] * msu(ids[b,s]) / ||msu(ids[b,s])||
+    total[b] = sum_s mask[b,s] * msu(ids[b,s]) / ||msu(ids[b,s])||
+    out[b]   = mean over the unmasked shingles, L2-normalised
 
-The divide-by-count and the final normalisation (``mean_normalize``) run
-in torch after either version, in the wrapper (``ops.shingle_embed``).
-Source: ``csrc/shingle_embed.cu``; replaces
+The kernel computes both lines in one launch. The plain version is
+``shingle_embed_sum_plain`` (the first line, as the reference's Pallas
+kernel) followed by ``mean_normalize`` (the second, as the reference's
+caller). Source: ``csrc/shingle_embed.cu``; replaces
 ``repro/kernels/shingle_embed.py:42``.
 """
 from __future__ import annotations
@@ -39,15 +41,31 @@ def mean_normalize(total: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-12)
 
 
-def shingle_embed_sum_cuda(ids: torch.Tensor, mask: torch.Tensor,
-                           a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B (inputs checked by the caller)."""
+def shingle_embed_cuda(ids: torch.Tensor, mask: torch.Tensor,
+                       a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B (inputs checked by the caller): [B, M] float32
+    L2-normalised mean features."""
     rows, s_len = ids.shape
     m = a.shape[0]
     out = torch.empty(rows, m, dtype=torch.float32, device=ids.device)
     stream = torch.cuda.current_stream(ids.device).cuda_stream
-    err = _build.lib().repro_shingle_embed_sum(
+    err = _build.lib().repro_shingle_embed(
         ids.data_ptr(), mask.data_ptr(), a.data_ptr(), b.data_ptr(),
         rows, s_len, m, out.data_ptr(), stream)
-    _build.check(err, "repro_shingle_embed_sum")
+    _build.check(err, "repro_shingle_embed")
+    return out
+
+
+def residual_quotient_cuda(h: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
+    """The kernel's division-free quotient, on its own: h [n] int32 hash
+    bits and norm [n] float32 > 0 on the card -> [n] float32, which must
+    equal (h * 2^-31) / norm bit for bit. A check, not on the main path."""
+    if (h.dtype != torch.int32 or norm.dtype != torch.float32 or h.shape != norm.shape
+            or h.dim() != 1 or not (h.is_contiguous() and norm.is_contiguous())):
+        raise ValueError("want contiguous [n] int32 hashes and [n] float32 norms")
+    out = torch.empty_like(norm)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    err = _build.lib().repro_shingle_quotient(
+        h.data_ptr(), norm.data_ptr(), h.shape[0], out.data_ptr(), stream)
+    _build.check(err, "repro_shingle_quotient")
     return out

@@ -15,7 +15,7 @@ import torch
 from repro.core import hashing as ref_hashing
 from repro.kernels import shingle_embed as ref_shingle
 from repro.kernels import sim_topk as ref_topk
-from repro_torch.core import hashing
+from repro_torch.core import features, hashing
 from repro_torch.kernels import _build, gear_hash, ops, shingle_embed, sim_topk
 
 torch.set_num_threads(1)
@@ -177,15 +177,35 @@ def test_cuda_kernels_match_plain_versions():
         # a stream that does not start 16-byte aligned takes the byte loads
         if n > 1:
             assert torch.equal(ops.gear_hashes(data[1:]), gear_hash.gear_hashes_plain(data[1:]))
-    ids = torch.randint(-2**31, 2**31 - 1, (300, 61), dtype=torch.int32, device=dev,
-                        generator=gen)
-    mask = torch.rand(300, 61, device=dev, generator=gen) < 0.8
-    mask[0] = False
-    a, b = (hashing.to_i32_bits(hashing.u32_tensor(x, dev))
-            for x in hashing.multiply_shift_params(64))
-    got = shingle_embed.shingle_embed_sum_cuda(ids, mask, a, b)
-    want = shingle_embed.shingle_embed_sum_plain(ids, mask, a, b)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # kernel B's features against the plain sums + epilogue: S across a
+    # pass of 64, M 50 / 64 / 256, random masks and sorted first
+    # occurrences as unique_mask makes them; row 0 all-masked gives 0
+    embeds = ((300, 61, 64, False), (300, 61, 64, True), (129, 200, 64, False),
+              (77, 61, 50, True), (40, 130, 256, False), (40, 61, 256, True))
+    for rows, s_len, m, unique in embeds:
+        ids = torch.randint(-2**31, 2**31 - 1, (rows, s_len), dtype=torch.int32,
+                            device=dev, generator=gen)
+        if unique:
+            # ids drawn from the row's first half, so many repeat
+            pick = torch.randint(0, s_len // 2, (rows, s_len), device=dev, generator=gen)
+            ids, mask = features.unique_mask(hashing.from_i32_bits(torch.gather(ids, 1, pick)))
+            ids = hashing.to_i32_bits(ids)
+        else:
+            mask = torch.rand(rows, s_len, device=dev, generator=gen) < 0.8
+        mask[0] = False
+        a, b = (hashing.to_i32_bits(hashing.u32_tensor(x, dev))
+                for x in hashing.multiply_shift_params(m))
+        got = ops.shingle_embed(ids, mask, a, b)
+        want = shingle_embed.mean_normalize(
+            shingle_embed.shingle_embed_sum_plain(ids, mask, a, b), mask)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert float(got[0].abs().max()) == 0.0
+    # its division-free quotient, bit for bit against IEEE x / norm
+    h = torch.randint(-2**31, 2**31 - 1, (1 << 20,), dtype=torch.int32, device=dev,
+                      generator=gen)
+    norm = torch.rand(1 << 20, device=dev, generator=gen) * 12 + 4e-3
+    q = shingle_embed.residual_quotient_cuda(h, norm)
+    assert torch.equal(q.view(torch.int32), (h.float() * 2.0**-31 / norm).view(torch.int32))
     q = torch.randn(37, 50, device=dev, generator=gen)
     index = torch.randn(5000, 50, device=dev, generator=gen)
     s, r = ops.sim_topk(q, index)
@@ -194,6 +214,7 @@ def test_cuda_kernels_match_plain_versions():
     assert torch.equal(r, pr)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["scan_candidates"] == len(sizes) and ops.LAUNCHES["sim_topk"] == 1
+    assert ops.LAUNCHES["shingle_embed"] == len(embeds)
 
 
 def test_sim_topk_split_plan():
