@@ -21,7 +21,11 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               its quotients bit for bit against x / norm, timed beside
               the old torch epilogue and the launch floor; kernel C's
               argmax exact at B 4097, D 16 / 50 / 64 / 256, its ties and
-              padding, timed at N 16,384 and 2^20;
+              padding, timed at N 16,384 and 2^20; kernel A's Rabin
+              route on the packed chunks of a real sql_dump version (the
+              baselines' extract): bit-exact for every chunk against the
+              plain version run on that chunk alone, timed beside the
+              plain version and the bound;
   3b. attn_kernel  kernel D (flash attention) against its plain version,
               each check on the route dtype and hd give it (bf16 at hd 64
               or 128 on the tensor cores, f32 and hd 100 on the SIMT
@@ -35,6 +39,14 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               the JAX package's) and the launch count of each kernel,
               which must all be > 0; then a profiled ingest ("profile")
               for the device busy share;
+  4b. baselines  four stores built from config dicts on the card
+              (``api.config.build_store``): dedup-only, Finesse,
+              N-transform and CARD, each over the same workloads: DCR and
+              chunk counts equal to the JAX package's (pinned from
+              scripts/baseline_dcr.py; CARD's as in phase 4), every restore
+              SHA-256-identical, kernel A's Rabin route launched on both
+              super-feature paths; DCR, ingest MB/s and detect seconds side
+              by side;
   5. fit      the card's context-model fit against a CPU fit from the
               same init and batch stream (per-step loss, transform);
   6. parity   the port on the card and on the CPU over kernel-workload
@@ -71,6 +83,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.api import config  # noqa: E402
 from repro_torch.api.store import DedupStore, chunk_with  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import chunking, context_model, features, hashing, pipeline  # noqa: E402
@@ -180,6 +193,45 @@ def check_gear(dev, sizes, gen, main_n: int, bucket_n: int) -> dict:
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=None, shape=[main_n],
                 bucket_64mib=at_bucket)
+
+
+def check_rabin(dev, version: bytes) -> dict:
+    """Kernel A's Rabin route as the super-feature baselines launch it: on
+    one real sql_dump version's chunks, packed with W - 1 zero bytes
+    between them (``ingest.pack_chunks``). Bit-exact against the plain
+    version on the whole packed buffer, and, for every chunk, against the
+    plain version run on that chunk alone (one row a chunk, its window
+    starting from 0 at the chunk's first byte: the reference's per-chunk
+    fingerprints). Timed beside the plain version, with the bound: bytes,
+    each packed byte read and each fingerprint written; operations, the
+    rolling recurrence h = p*h + b - p^W*b' (4 a position)."""
+    window = hashing.RABIN_WINDOW
+    chunks, scan = chunk_with(CHUNKER, version, dev)
+    offs = np.asarray([c.offset for c in chunks], np.int64)
+    lens = np.asarray([c.length for c in chunks], np.int64)
+    packed, starts = ingest.pack_chunks(scan.data, offs, lens, window - 1)
+    got = ops.rabin_fps(packed, window)
+    if not torch.equal(got, gear_hash.rabin_fps_plain(packed, window)):
+        fail("rabin_fps != plain on the packed sql_dump chunks")
+    t = torch.arange(int(lens.max()), device=dev)
+    valid = t[None, :] < torch.from_numpy(lens).to(dev)[:, None]     # [B, Lmax]
+    pos = (starts[:, None] + t[None, :])[valid]     # every chunk byte, chunk by chunk
+    rows = torch.zeros(valid.shape, dtype=torch.uint8, device=dev)
+    rows[valid] = packed[pos]
+    alone = hashing.to_i32_bits(hashing.rabin_fps(rows, window))[valid]
+    wrong = int((got[pos] != alone).sum())
+    if wrong:
+        fail(f"rabin_fps on the packed chunks differs from per-chunk fingerprints "
+             f"at {wrong} positions")
+    del rows, valid, pos, alone
+    n = packed.shape[0]
+    ms = time_ms(lambda: ops.rabin_fps(packed, window))
+    plain_ms = time_ms(lambda: gear_hash.rabin_fps_plain(packed, window), reps=3, warmup=1)
+    b_ms, b_by = bound(n + 4 * n, 4.0 * n)
+    out = dict(n=n, chunks=len(chunks), window=window, kernel_ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, per_chunk_exact=True)
+    emit("kernel", name="rabin_packed", **out)
+    return out
 
 
 def real_extract(dev, version: bytes) -> tuple[torch.Tensor, torch.Tensor]:
@@ -592,6 +644,90 @@ def device_share(name: str, versions: list[bytes]) -> None:
          device_s=device_s, device_busy_share=device_s / wall, top_device_ms=top)
 
 
+# --- phase 4b: the paper's baselines beside CARD, through the config path -----
+
+# The JAX package's DCR and (chunks, dup, delta, raw) at this configuration
+# (32 MiB x 4 versions, seed 1234, FastCDC avg 8192, default super-feature
+# settings), printed on a CPU by scripts/baseline_dcr.py; CARD's is phase
+# 4's. The port takes the same chunks and super-features, so the card must
+# give the same.
+BASELINE_REFERENCE = {
+    "sql_dump": {"dedup-only": (2.068891, 14533, 7728, 0, 6805),
+                 "finesse": (3.446245, 14533, 7728, 2645, 4160),
+                 "n-transform": (3.698334, 14533, 7728, 2938, 3867)},
+    "vmdk": {"dedup-only": (3.378073, 9547, 6753, 0, 2794),
+             "finesse": (4.590089, 9547, 6753, 711, 2083),
+             "n-transform": (3.510103, 9547, 6753, 108, 2686)},
+}
+BASELINE_DETECTORS = ("dedup-only", "finesse", "n-transform", "card")
+
+
+def baseline_config(detector: str) -> config.DedupConfig:
+    args = {"feat": dataclasses.asdict(FEAT), "model": dataclasses.asdict(MODEL),
+            "threshold": 0.3} if detector == "card" else {}
+    return config.DedupConfig.from_dict({"detector": detector, "detector_args": args,
+                                         "chunker_args": {"avg_size": CHUNKER.avg_size}})
+
+
+def baselines_phase(dev, name: str, versions: list[bytes]) -> dict[str, int]:
+    """Each detector's store, built from its config dict on the card,
+    ingests ``versions``; the launch counts are reset before each store and
+    read after it. Returns the kernels' launches summed over the stores,
+    with kernel A's Rabin route also on its own ("rabin")."""
+    total = sum(len(v) for v in versions)
+    rows, launches = {}, {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0, "rabin": 0}
+    for det in BASELINE_DETECTORS:
+        store = config.build_store(baseline_config(det), device=dev)
+        store._clock()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        store.fit(versions[:1])
+        t1 = time.perf_counter()
+        for v in versions:
+            store.ingest(v)
+        t2 = store._clock()
+        lc = dict(ops.LAUNCHES)
+        for h, v in enumerate(versions):
+            if hashlib.sha256(store.restore(h)).digest() != hashlib.sha256(v).digest():
+                fail(f"baselines {name} {det}: version {h} did not restore byte-identically")
+        st = store.stats
+        counts = (st.chunks, st.dup_chunks, st.delta_chunks, st.raw_chunks)
+        rows[det] = dict(dcr=st.dcr, ingest_mb_per_s=total / 1e6 / (t2 - t1),
+                         detect_s=st.detect_seconds, extract_s=st.extract_seconds,
+                         score_s=st.score_seconds, observe_s=st.observe_seconds,
+                         delta_s=st.delta_seconds, chunk_s=st.chunk_seconds,
+                         extract_s_by_version=[r.extract_seconds for r in store.reports],
+                         fit_s=t1 - t0, ingest_s=t2 - t1, counts=list(counts),
+                         launches={k: v for k, v in lc.items() if v})
+        if det == "card":
+            want_dcr = REFERENCE_DCR[name]
+            used = [lc["scan_candidates"], lc["shingle_embed"], lc["sim_topk"]]
+        else:
+            want_dcr, *want_counts = BASELINE_REFERENCE[name][det]
+            used = [lc["scan_candidates"]] + ([lc["rabin_fps"]] if det != "dedup-only" else [])
+            if list(counts) != want_counts:
+                fail(f"baselines {name} {det}: counts {counts} are not the reference's "
+                     f"{want_counts}")
+        if round(st.dcr, 6) != want_dcr:
+            fail(f"baselines {name} {det}: DCR {st.dcr} is not the reference's {want_dcr}")
+        if min(used) <= 0:
+            fail(f"baselines {name} {det}: a kernel of the path was never launched: {lc}")
+        launches["gear_scan"] += lc["scan_candidates"] + lc["gear_hashes"] + lc["rabin_fps"]
+        launches["shingle_embed"] += lc["shingle_embed"]
+        launches["sim_topk"] += lc["sim_topk"]
+        launches["rabin"] += lc["rabin_fps"]
+        del store
+    card = rows["card"]
+    emit("baselines", workload=name, base_mib=BASE / 2**20, versions=len(versions),
+         bytes_in=total, detectors=rows, restored="sha256-identical",
+         dcr_reference={**{d: r[0] for d, r in BASELINE_REFERENCE[name].items()},
+                        "card": REFERENCE_DCR[name]},
+         card_dcr_gain={d: card["dcr"] / rows[d]["dcr"] - 1 for d in ("finesse", "n-transform")},
+         card_detect_speedup={d: rows[d]["detect_s"] / card["detect_s"]
+                              for d in ("finesse", "n-transform")})
+    return launches
+
+
 # --- phases 5 and 6: the card's fit, then card / CPU parity ------------------
 
 def record_verdicts(det) -> list:
@@ -846,17 +982,23 @@ def main() -> int:
                    for v in versions)
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    rabin = check_rabin(dev, main_versions["sql_dump"][1])
     rows = [check_gear(dev, sorted({1, 31, 33, 100, 8193, BASE, scan_n, bucket_n}), gen,
                        scan_n, bucket_n),
             check_embed(dev, gen, real_extract(dev, main_versions["sql_dump"][1])),
             check_topk(dev, gen, BIG_N),
             check_attn(dev, gen, PREFILL_LEN)]
 
-    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0}
+    rows[0]["rabin_packed"] = rabin
+
+    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0, "rabin": 0}
     for name, versions in main_versions.items():
         for k, v in main_path(name, versions).items():
             launches[k] += v
         device_share(name, versions[:2])
+    for name, versions in main_versions.items():
+        for k, v in baselines_phase(dev, name, versions).items():
+            launches[k] += v
     small = workloads.make_workload(
         "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))
     parity_phase(*fit_phase(small), small)
@@ -871,6 +1013,7 @@ def main() -> int:
         mod = sources[row["name"]]
         row.update(route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
                    launches=launches[row["name"]])
+    rows[0]["rabin_launches"] = launches["rabin"]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

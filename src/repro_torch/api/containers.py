@@ -9,12 +9,14 @@ from __future__ import annotations
 
 from typing import Sequence
 
+from repro_torch.api.registry import register_backend
 from repro_torch.core import delta
 
 KIND_RAW = 0
 KIND_DELTA = 1
 
 
+@register_backend("memory")
 class InMemoryBackend:
     """Chunk records and stream recipes in dicts."""
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.api import containers
+from repro_torch.api.detect import is_staged
 from repro_torch.api.types import DetectBatch, IngestReport, StoreStats
 from repro_torch.core import chunking, delta
 from repro_torch.kernels import ingest, ops
@@ -83,6 +84,7 @@ class DedupStore:
 
     def __init__(self, detector: Any,
                  chunker_cfg: chunking.ChunkerConfig | None = None,
+                 backend: containers.InMemoryBackend | None = None,
                  device: str | torch.device | None = None):
         self.device = ops.resolve_device(device)
         det_device = getattr(detector, "device", None)
@@ -90,7 +92,7 @@ class DedupStore:
             raise ValueError(f"detector runs on {det_device}, store on {self.device}")
         self.detector = detector
         self.cfg = chunker_cfg or chunking.ChunkerConfig()
-        self.backend = containers.InMemoryBackend()
+        self.backend = backend if backend is not None else containers.InMemoryBackend()
         self.stats = StoreStats()
         self.reports: list[IngestReport] = []
         self._by_digest: dict[bytes, int] = {}
@@ -141,20 +143,27 @@ class DedupStore:
                 is_new[i] = True
                 seen_in_stream[dig] = int(ids[i])
 
-        # pass 2: resemblance detection; index admission (observe) waits
-        # until the backend writes succeed
+        # pass 2: resemblance detection; a staged detector's index
+        # admission (observe) waits until the backend writes succeed, a
+        # legacy single-call detector mutates inside detect()
         extract_seconds = score_seconds = observe_seconds = 0.0
         batch = DetectBatch(chunks=chunks, ids=ids, is_new=is_new,
                             stream_hashes=stream_hashes)
+        staged = n > 0 and is_staged(self.detector)
         feats = None
         if n == 0:
             base_ids = np.empty(0, np.int64)
-        else:
+        elif staged:
             t0 = self._clock()
             feats = self.detector.extract(batch)
             extract_seconds = self._clock() - t0
             t0 = self._clock()
             base_ids = self.detector.score(feats, batch).base_ids
+            score_seconds = self._clock() - t0
+        else:
+            t0 = self._clock()
+            base_ids = np.asarray(
+                self.detector.detect(chunks, ids, is_new, stream_hashes), np.int64)
             score_seconds = self._clock() - t0
 
         # pass 3a: delta-vs-raw decisions over a worklist; a same-stream
@@ -201,7 +210,7 @@ class DedupStore:
         backend.flush()
         store_seconds = time.perf_counter() - t0
 
-        if n:
+        if staged:
             t0 = self._clock()
             self.detector.observe(feats, batch)
             observe_seconds = self._clock() - t0

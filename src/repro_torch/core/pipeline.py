@@ -1,35 +1,120 @@
-"""The CARD detector (port of ``repro.core.pipeline.CARDDetector``).
+"""Detectors + the end-to-end dedup/delta pipeline (port of
+``repro.core.pipeline``).
 
     stream -> FastCDC chunks -> exact dedup (blake2b)
-           -> CARD: initial features -> context model -> cosine index
+           -> resemblance detection (pluggable: CARD / Finesse / N-transform)
            -> delta-encode against the detected base | store raw
            -> container backend; DCR = bytes_in / bytes_stored
 
-The detector implements the staged protocol the store drives:
-``fit`` (offline training), ``extract`` (features), ``score`` (verdicts,
-pure) and ``observe`` (the one index-mutating step). Features stay on the
-detector's device from extraction through the index query.
+Detectors implement the staged protocol the store drives
+(``repro_torch.api.detect``): ``fit`` (offline training), ``extract``
+(features, batched on the device), ``score`` (verdicts, pure) and
+``observe`` (the one index-mutating step); ``LegacyDetectMixin`` adds the
+v0 ``detect``. Each takes a ``device`` and runs on the CUDA device unless
+given ``device="cpu"``. Detection time (the paper's speed metric) is the
+wall time of the three stages.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.api.store import chunk_with
-from repro_torch.api.types import DetectBatch, DetectResult
-from repro_torch.core import chunking, context_model, features, similarity
-from repro_torch.kernels import ops
+from repro_torch.api.detect import LegacyDetectMixin
+from repro_torch.api.registry import get_index, register_detector
+from repro_torch.api.store import DedupStore, chunk_with
+from repro_torch.api.types import DetectBatch, DetectResult, StoreStats
+from repro_torch.core import baselines, chunking, context_model, features, similarity
+from repro_torch.kernels import ingest, ops
 
 
-class CARDDetector:
+class NullDetector(LegacyDetectMixin):
+    """Exact dedup only (no delta compression)."""
+
+    name = "dedup-only"
+
+    def __init__(self, device: str | torch.device | None = None):
+        self.device = ops.resolve_device(device)
+
+    def fit(self, training_streams, cfg):
+        pass
+
+    def extract(self, batch: DetectBatch) -> None:
+        return None
+
+    def score(self, feats: None, batch: DetectBatch) -> DetectResult:
+        return DetectResult(np.full(len(batch), -1, np.int64))
+
+    def observe(self, feats: None, batch: DetectBatch) -> None:
+        pass
+
+
+class SuperFeatureDetector(LegacyDetectMixin):
+    """Shared FirstFit wrapper for N-transform / Finesse.
+
+    ``extract`` takes every chunk's super-features at once: kernel A's
+    Rabin route over the stream's chunks (``ingest.chunk_rabin_fps``),
+    then the scheme's range maxes on the device. FirstFit is sequential
+    (chunk i may delta against chunk j < i of the same stream), so
+    ``score`` replays that order on the host against a *pure overlay* of
+    the shared index, and ``observe`` admits the batch for real: every
+    verdict and the final index are the v0 interleaved loop's.
+    """
+
+    def __init__(self, scheme, name: str, device: str | torch.device | None = None):
+        self.device = ops.resolve_device(device)
+        self._scheme = scheme
+        self.name = name
+        self._index = baselines.SuperFeatureIndex()
+
+    def fit(self, training_streams, cfg):
+        pass  # content-only schemes have no training phase
+
+    def extract(self, batch: DetectBatch) -> list[tuple[int, ...]]:
+        offs = np.asarray([c.offset for c in batch.chunks], np.int64)
+        lens = np.asarray([c.length for c in batch.chunks], np.int64)
+        fps, starts = ingest.chunk_rabin_fps(batch.stream_hashes, offs, lens,
+                                             self._scheme.cfg.window)
+        return self._scheme.batch_super_features(fps, starts, lens)
+
+    def score(self, sfs_list: list[tuple[int, ...]],
+              batch: DetectBatch) -> DetectResult:
+        n = len(batch)
+        out = np.full(n, -1, np.int64)
+        overlay: list[dict[int, int]] = []
+        for i, sfs in enumerate(sfs_list):
+            if batch.is_new[i]:
+                hit = self._index.query(sfs, overlay=overlay)
+                if hit is not None and hit != batch.ids[i]:
+                    out[i] = hit
+            self._index.stage(sfs, int(batch.ids[i]), overlay)
+        return DetectResult(out)
+
+    def observe(self, sfs_list: list[tuple[int, ...]],
+                batch: DetectBatch) -> None:
+        for sfs, cid in zip(sfs_list, batch.ids):
+            self._index.insert(sfs, int(cid))
+
+
+def ntransform_detector(cfg: baselines.SuperFeatureConfig | None = None,
+                        device: str | torch.device | None = None):
+    return SuperFeatureDetector(baselines.NTransform(cfg), "n-transform", device)
+
+
+def finesse_detector(cfg: baselines.SuperFeatureConfig | None = None,
+                     device: str | torch.device | None = None):
+    return SuperFeatureDetector(baselines.Finesse(cfg), "finesse", device)
+
+
+class CARDDetector(LegacyDetectMixin):
     """The paper's scheme: initial features -> context model -> cosine index.
 
     Batch two-phase search: one top-1 query of the stream's chunks against
     the stored index, plus one intra-stream similarity pass (earlier chunks
     of the same stream are eligible bases), then a single batched insert.
-    Runs on the CUDA device unless given ``device="cpu"``.
+    The index is a registry name (``"exact"``, the default) or an index
+    object. Runs on the CUDA device unless given ``device="cpu"``.
     """
 
     name = "card"
@@ -38,6 +123,8 @@ class CARDDetector:
                  feat_cfg: features.FeatureConfig | None = None,
                  model_cfg: context_model.ContextModelConfig | None = None,
                  threshold: float = 0.3,
+                 index: str | Any | None = None,
+                 index_args: dict | None = None,
                  device: str | torch.device | None = None):
         self.device = ops.resolve_device(device)
         self.feat_cfg = feat_cfg or features.FeatureConfig()
@@ -49,8 +136,12 @@ class CARDDetector:
         self.lmax_floor = 0
         self.extractor = features.FeatureExtractor(self.feat_cfg, device=self.device)
         self.model = context_model.ContextModel(self.model_cfg, device=self.device)
-        self.index = similarity.CosineIndex(self.model_cfg.d, threshold=threshold,
-                                            device=self.device)
+        if index is None or isinstance(index, str):
+            self.index = get_index(index or "exact")(
+                self.model_cfg.d, threshold=threshold, device=self.device,
+                **(index_args or {}))
+        else:
+            self.index = index
 
     def _initial_features(self, chunks, stream_hashes) -> torch.Tensor:
         offs = np.asarray([c.offset for c in chunks], np.int64)
@@ -109,3 +200,62 @@ class CARDDetector:
             sel = torch.from_numpy(new).to(feats.device)
             self.index.insert_batch(feats[sel], batch.ids[new])
 
+
+# --- registry factories (repro_torch.api.config builds through these) --------
+
+@register_detector("dedup-only")
+def _build_null(device: str | torch.device | None = None) -> NullDetector:
+    return NullDetector(device)
+
+
+@register_detector("finesse")
+def _build_finesse(device: str | torch.device | None = None,
+                   **sf_args) -> SuperFeatureDetector:
+    cfg = baselines.SuperFeatureConfig(**sf_args) if sf_args else None
+    return finesse_detector(cfg, device)
+
+
+@register_detector("n-transform")
+def _build_ntransform(device: str | torch.device | None = None,
+                      **sf_args) -> SuperFeatureDetector:
+    cfg = baselines.SuperFeatureConfig(**sf_args) if sf_args else None
+    return ntransform_detector(cfg, device)
+
+
+@register_detector("card")
+def _build_card(*, feat: dict | None = None, model: dict | None = None,
+                threshold: float = 0.3, index: str | None = None,
+                index_args: dict | None = None, use_kernel: bool = True,
+                fused: bool = True,
+                device: str | torch.device | None = None) -> CARDDetector:
+    """The reference's ``"card"`` factory. ``use_kernel=False`` names the
+    reference's path that skips its Pallas kernels: on the CPU the port
+    runs the plain versions anyway, on the card it has no such path."""
+    if not fused:
+        raise NotImplementedError(
+            "fused=False (the per-chunk host feature path) is not ported yet: "
+            "ROADMAP Queue 1 item 5")
+    dev = ops.resolve_device(device)
+    if not use_kernel and dev.type == "cuda":
+        raise ValueError("use_kernel=False: on the card the port runs its "
+                         "kernels and has no path that skips them")
+    feat_cfg = features.FeatureConfig(**(feat or {}))
+    model_kw = dict(model or {})
+    model_kw.setdefault("m", feat_cfg.m)
+    model_cfg = context_model.ContextModelConfig(**model_kw)
+    return CARDDetector(feat_cfg=feat_cfg, model_cfg=model_cfg,
+                        threshold=threshold, index=index,
+                        index_args=index_args, device=dev)
+
+
+def run_workload(detector: Any, versions: Sequence[bytes],
+                 cfg: chunking.ChunkerConfig | None = None,
+                 train_on: int = 1) -> StoreStats:
+    """Paper experiment harness: fit on the first ``train_on`` versions,
+    then ingest every version through a store on the detector's device;
+    returns the final stats."""
+    store = DedupStore(detector, cfg, device=getattr(detector, "device", None))
+    store.fit(list(versions[:train_on]))
+    for v in versions:
+        store.ingest(v)
+    return store.stats

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.api.registry import register_index
 from repro_torch.kernels import ops
 
 KERNEL_MIN_ROWS = 512
@@ -52,6 +53,7 @@ def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             mod.fp32_precision = value
 
 
+@register_index("exact")
 class CosineIndex:
     """Append-only exact cosine top-1 index (features assumed L2-normalised)."""
 

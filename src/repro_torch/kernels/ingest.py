@@ -1,6 +1,7 @@
 """Fused per-stream ingest pipeline (port of ``repro.kernels.ingest``).
 
-Two device passes per stream:
+Two device passes per stream, and a third for the super-feature
+baselines:
 
     scan_stream      bytes [Spad] u8, Spad = n rounded up to SCAN_ALIGN
                        -> kernel A: windowed gear hashes [Spad] (kept on
@@ -14,13 +15,17 @@ Two device passes per stream:
                           (``shingle_inputs``, the real rows only)
                        -> kernel B: multiply-shift embed, mean and
                           normalise in one launch [B, M]
+    chunk_rabin_fps  StreamScan's bytes + chunk offsets/lengths
+                       -> the chunks packed with zero gaps, one launch of
+                          kernel A's Rabin route: each chunk's window
+                          fingerprints, as a per-chunk scan gives them
 
 The chunk count B and the longest-chunk extent Lmax are padded up to a
 power-of-two bucket, exactly as the reference does, and padded rows are
 masked, so every integer stage is bit-identical to the reference per row.
 The stream is not: the reference buckets it so that XLA compiles once per
 bucket, but a CUDA scan takes any length, so it is padded only to
-SCAN_ALIGN, the widest tile ``subchunk_maxgear`` reshapes it into. Hashes
+SCAN_ALIGN, the widest tile ``range_max`` reshapes it into. Hashes
 past n are never read: every gather is masked by its chunk's end, and
 whole tiles end at or before it.
 """
@@ -36,7 +41,7 @@ from repro_torch.kernels import gear_hash, ops
 
 _FLOOR_B = 16
 # the stream is scanned at a multiple of this: the largest `tile` of
-# subchunk_maxgear, which reshapes the hashes into rows of `tile`
+# range_max, which reshapes the hashes into rows of `tile`
 SCAN_ALIGN = 128
 
 # Positions are int64 here, but the reference indexes with int32 and
@@ -48,11 +53,15 @@ FUSED_STREAM_LIMIT = 2**31 - 2**20
 class StreamScan:
     """Device-resident gear scan of one stream (padded to SCAN_ALIGN, int32
     hash bits), with lazy host materialisation: indexes like the [n] uint32
-    numpy array of the reference."""
+    numpy array of the reference. ``data`` keeps the stream's bytes as the
+    scan read them on the device, so later passes over the chunks
+    (``chunk_rabin_fps``) gather them there instead of copying them up
+    again."""
 
-    def __init__(self, device: torch.Tensor, n: int) -> None:
+    def __init__(self, device: torch.Tensor, n: int, data: torch.Tensor) -> None:
         self.device = device            # [scan_length(n)] int32 hash bits
         self.n = n
+        self.data = data                # [scan_length(n)] uint8, zeros past n
         self._np: np.ndarray | None = None
 
     def asnumpy(self) -> np.ndarray:
@@ -88,33 +97,25 @@ def scan_stream(data: np.ndarray, mask_s: int, mask_l: int,
     spad = scan_length(n)
     host = torch.zeros(spad, dtype=torch.uint8)
     host.numpy()[:n] = data
-    h, ws, wl = ops.scan_candidates(host.to(device), int(mask_s), int(mask_l))
+    on_dev = host.to(device)
+    h, ws, wl = ops.scan_candidates(on_dev, int(mask_s), int(mask_l))
     cand_s = gear_hash.unpack_bits(ws.cpu().numpy(), n)
     cand_l = gear_hash.unpack_bits(wl.cpu().numpy(), n)
-    return StreamScan(h, n), cand_s, cand_l
+    return StreamScan(h, n, on_dev), cand_s, cand_l
 
 
-def subchunk_maxgear(sh: torch.Tensor, offsets: torch.Tensor,
-                     lengths: torch.Tensor, k: int, lmax: int) -> torch.Tensor:
-    """Stream hashes [Spad] u32-in-int64 + chunk offsets/lengths [B] ->
-    [B, K] sub-chunk maxes (u32-in-int64).
-
-    Segment j of a length-L chunk spans [floor(j*L/k), floor((j+1)*L/k)),
-    clipped below by the 31-position gear warm-up; empty segments are 0.
-    """
+def range_max(sh: torch.Tensor, s_abs: torch.Tensor, e_abs: torch.Tensor,
+              tmax: int) -> torch.Tensor:
+    """Max of ``sh`` ([Spad] u32-in-int64, Spad a multiple of SCAN_ALIGN)
+    over each range [s, e) of ``s_abs`` / ``e_abs`` ([B, K] int64, ranges
+    inside [0, Spad), none wider than ``tmax``): [B, K], 0 where empty."""
     spad = sh.shape[0]
     dev = sh.device
-    j = torch.arange(k + 1, device=dev)
-    lens = torch.clamp(lengths, min=0)
-    bounds = (j[None, :] * lens[:, None]) // k                     # [B, K+1]
-    s_abs = offsets[:, None] + torch.clamp(bounds[:, :k], min=_feat._WARMUP)
-    e_abs = offsets[:, None] + bounds[:, 1:]                       # [B, K]
 
     def gather(pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         vals = sh[torch.clamp(pos, 0, spad - 1)]
         return torch.where(valid, vals, 0)
 
-    tmax = lmax // k + 1                                           # max width
     if tmax <= 32:
         # tiny chunks: one dense masked gather [B, K, Tmax]
         t = torch.arange(tmax, device=dev)
@@ -141,6 +142,22 @@ def subchunk_maxgear(sh: torch.Tensor, offsets: torch.Tensor,
     tail = gather(tpos, tpos < e_abs[:, :, None])
     return torch.maximum(interior.amax(dim=-1),
                          torch.maximum(head.amax(dim=-1), tail.amax(dim=-1)))
+
+
+def subchunk_maxgear(sh: torch.Tensor, offsets: torch.Tensor,
+                     lengths: torch.Tensor, k: int, lmax: int) -> torch.Tensor:
+    """Stream hashes [Spad] u32-in-int64 + chunk offsets/lengths [B] ->
+    [B, K] sub-chunk maxes (u32-in-int64).
+
+    Segment j of a length-L chunk spans [floor(j*L/k), floor((j+1)*L/k)),
+    clipped below by the 31-position gear warm-up; empty segments are 0.
+    """
+    j = torch.arange(k + 1, device=sh.device)
+    lens = torch.clamp(lengths, min=0)
+    bounds = (j[None, :] * lens[:, None]) // k                     # [B, K+1]
+    s_abs = offsets[:, None] + torch.clamp(bounds[:, :k], min=_feat._WARMUP)
+    e_abs = offsets[:, None] + bounds[:, 1:]                       # [B, K]
+    return range_max(sh, s_abs, e_abs, lmax // k + 1)
 
 
 def shingle_inputs(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
@@ -182,3 +199,42 @@ def extract_stream(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
     ids, mask = shingle_inputs(scan, offsets, lengths, a.device, k=k, n=n,
                                lmax_floor=lmax_floor)
     return ops.shingle_embed(ids, mask, a, b)
+
+
+def pack_chunks(data: torch.Tensor, offsets: np.ndarray, lengths: np.ndarray,
+                gap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lay the chunks of ``data`` (the stream's bytes, on the device) end
+    to end with ``gap`` zero bytes between neighbours: chunk 0, gap,
+    chunk 1, ... Returns the packed buffer ([sum L + gap * (B - 1)] bytes,
+    zero-padded to a multiple of SCAN_ALIGN for ``range_max``) and each
+    chunk's start in it ([B] int64)."""
+    dev = data.device
+    lens = torch.from_numpy(np.asarray(lengths, np.int64)).to(dev)
+    offs = torch.from_numpy(np.asarray(offsets, np.int64)).to(dev)
+    total = int(np.sum(lengths))
+    chunk = torch.repeat_interleave(torch.arange(lens.shape[0], device=dev), lens,
+                                    output_size=total)               # [sum L]
+    before = torch.cumsum(lens, 0) - lens          # chunk bytes before each chunk
+    starts = before + gap * torch.arange(lens.shape[0], device=dev)
+    k = torch.arange(total, device=dev)
+    packed = torch.zeros(scan_length(total + gap * (lens.shape[0] - 1)),
+                         dtype=torch.uint8, device=dev)
+    packed[k + gap * chunk] = data[k + (offs - before)[chunk]]
+    return packed, starts
+
+
+def chunk_rabin_fps(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
+                    window: int = hashing.RABIN_WINDOW
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each chunk's Rabin fingerprints, as the reference takes them one
+    chunk at a time (the window starts from 0 at the chunk's first byte),
+    from one launch of kernel A over the whole stream.
+
+    The chunks are packed with ``window - 1`` zero bytes between them
+    (``pack_chunks``). A zero byte adds nothing to a window sum, so a
+    window that starts inside a gap sees exactly the warm-up value of a
+    per-chunk scan. Returns the fingerprints of the packed buffer ([Npad]
+    u32-in-int64) and each chunk's start in it ([B] int64): chunk c's
+    fingerprints are ``fps[starts[c]:starts[c] + L_c]``."""
+    packed, starts = pack_chunks(scan.data, offsets, lengths, window - 1)
+    return hashing.from_i32_bits(ops.rabin_fps(packed, window)), starts

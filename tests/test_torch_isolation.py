@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.api import config
 from repro_torch.api.store import DedupStore
 from repro_torch.core import context_model, features, pipeline, similarity
 from repro_torch.kernels import ops
@@ -53,7 +54,13 @@ def test_the_checker_sees_forbidden_imports(tmp_path):
     lambda: similarity.CosineIndex(8),
     lambda: DedupStore(pipeline.CARDDetector(device="cpu")),
     lambda: ops.resolve_device("cuda"),
-], ids=["detector", "extractor", "context_model", "index", "store", "resolve"])
+    lambda: pipeline.NullDetector(),
+    lambda: pipeline.finesse_detector(),
+    lambda: pipeline.ntransform_detector(),
+    lambda: config.build_store(config.DedupConfig(detector="dedup-only")),
+    lambda: config.build_detector(config.DedupConfig()),
+], ids=["detector", "extractor", "context_model", "index", "store", "resolve",
+        "null_detector", "finesse", "n_transform", "build_store", "build_detector"])
 def test_cuda_default_raises_without_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
