@@ -47,6 +47,23 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               SHA-256-identical, kernel A's Rabin route launched on both
               super-feature paths; DCR, ingest MB/s and detect seconds side
               by side;
+  4c. backends  CARD stores on the persistent backends ("file" with
+              verify_reads, "objectstore" over LocalObjectStore), each built
+              from a config dict on the card in a fresh temporary directory,
+              over the same workloads: fit, ingest the 4 versions (DCR, bytes
+              stored and counts pinned to the JAX package's from
+              scripts/backend_dcr.py, counts equal to phase 4's, kernels A, B
+              and C launched), close; a fresh store from the same dict on the
+              same directory restores every version SHA-256-identically cold
+              and warm, by iterator and by 16 seeded ranges; a fresh fit and
+              ingest of version 3 stores new chunks under ids above the
+              reopened max_chunk_id, with A and B launched again (C's gate
+              wants 512 indexed rows; the reopened index is empty), and all
+              5 streams restore; on "objectstore" a FaultSchedule fails a GET
+              and the restore stays exact with retries > 0. One JSON line a
+              workload and backend: DCR, counts, ingest MB/s, store seconds,
+              cold / warm restore MB/s, bytes read, requests and read
+              amplification, bytes on disk, the crc32c route and its seconds;
   5. fit      the card's context-model fit against a CPU fit from the
               same init and batch stream (per-step loss, transform);
   6. parity   the port on the card and on the CPU over kernel-workload
@@ -74,6 +91,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -83,7 +101,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.api import config  # noqa: E402
+from repro_torch.api import config, faults, integrity  # noqa: E402
 from repro_torch.api.store import DedupStore, chunk_with  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import chunking, context_model, features, hashing, pipeline  # noqa: E402
@@ -566,6 +584,8 @@ def check_attn(dev, gen, t_main: int) -> dict:
 # decimals. The port's context model starts from the reference's own
 # init at these widths (core/fixtures), so the card must give the same.
 REFERENCE_DCR = {"sql_dump": 4.129564, "vmdk": 5.681883}
+# (chunks, dup, delta, raw) of each workload's phase-4 store, for phase 4c
+MAIN_COUNTS: dict[str, tuple[int, int, int, int]] = {}
 
 
 def card_detector(device) -> pipeline.CARDDetector:
@@ -604,6 +624,7 @@ def main_path(name: str, versions: list[bytes]) -> dict[str, int]:
          raw=st.raw_chunks, dcr=st.dcr, dcr_reference=REFERENCE_DCR[name],
          init_source=store.detector.model.init_source, restored="sha256-identical",
          launches=per_kernel, wrapper_launches=launches)
+    MAIN_COUNTS[name] = (st.chunks, st.dup_chunks, st.delta_chunks, st.raw_chunks)
     if round(st.dcr, 6) != REFERENCE_DCR[name]:
         fail(f"{name}: DCR {st.dcr} is not the reference's {REFERENCE_DCR[name]}")
     if min(per_kernel.values()) <= 0:
@@ -725,6 +746,186 @@ def baselines_phase(dev, name: str, versions: list[bytes]) -> dict[str, int]:
          card_dcr_gain={d: card["dcr"] / rows[d]["dcr"] - 1 for d in ("finesse", "n-transform")},
          card_detect_speedup={d: rows[d]["detect_s"] / card["detect_s"]
                               for d in ("finesse", "n-transform")})
+    return launches
+
+
+# --- phase 4c: CARD on the persistent backends, closed and reopened ----------
+
+# The JAX package's DCR, bytes stored and (chunks, dup, delta, raw) for CARD
+# on each persistent backend at phase 4's configuration, printed on a CPU by
+# scripts/backend_dcr.py. A FileBackend adds its 29-byte RCL2 record header
+# to each stored chunk, an ObjectStoreBackend nothing (its DCR is
+# REFERENCE_DCR's).
+BACKEND_REFERENCE = {
+    "sql_dump": {"file": (4.105373, 33687118, 14533, 7728, 6796, 9),
+                 "objectstore": (4.129564, 33489773, 14533, 7728, 6796, 9)},
+    "vmdk": {"file": (5.66246, 23703078, 9547, 6753, 1704, 1090),
+             "objectstore": (5.681883, 23622052, 9547, 6753, 1704, 1090)},
+}
+BACKEND_KNOBS = {"restore_cache_bytes": 256 << 20, "restore_reader_fds": 4,
+                 "restore_readahead": 2}
+RANGE_SLICES = 16
+
+
+def backend_config(backend: str, root: str) -> config.DedupConfig:
+    args = {"feat": dataclasses.asdict(FEAT), "model": dataclasses.asdict(MODEL),
+            "threshold": 0.3}
+    return config.DedupConfig.from_dict({
+        "detector": "card", "detector_args": args,
+        "chunker_args": {"avg_size": CHUNKER.avg_size}, "backend": backend,
+        "backend_args": {"path": root}, **BACKEND_KNOBS,
+        **({"verify_reads": True} if backend == "file" else {})})
+
+
+def card_launches(what: str, need=("gear_scan", "shingle_embed", "sim_topk")
+                  ) -> dict[str, int]:
+    """Kernels A, B and C's launches since the last reset; fails unless
+    each kernel in ``need`` launched."""
+    lc = {"gear_scan": ops.LAUNCHES["scan_candidates"] + ops.LAUNCHES["gear_hashes"],
+          "shingle_embed": ops.LAUNCHES["shingle_embed"], "sim_topk": ops.LAUNCHES["sim_topk"]}
+    if min(lc[k] for k in need) <= 0:
+        fail(f"{what}: a kernel of the path was never launched: {lc}")
+    return lc
+
+
+def restore_all(store, versions: list[bytes], what: str) -> dict:
+    """Restore every version, SHA-256 against the input; wall time, MB/s
+    and the summed RestoreReport counters."""
+    want = [hashlib.sha256(v).digest() for v in versions]
+    t0 = time.perf_counter()
+    reports = []
+    for h, v in enumerate(versions):
+        if hashlib.sha256(store.restore(h)).digest() != want[h]:
+            fail(f"{what}: version {h} did not restore byte-identically")
+        reports.append(store.last_restore)
+    seconds = time.perf_counter() - t0
+    out = sum(r.bytes_out for r in reports)
+    read = sum(r.bytes_read for r in reports)
+    last = reports[-1]
+    return dict(seconds=seconds, mb_per_s=out / 1e6 / seconds, bytes_out=out, bytes_read=read,
+                requests=sum(r.requests for r in reports), read_amplification=read / out,
+                cache_hits=sum(r.cache_hits for r in reports),
+                cache_misses=sum(r.cache_misses for r in reports),
+                last_restore=dict(bytes_read=last.bytes_read, requests=last.requests,
+                                  read_amplification=last.read_amplification))
+
+
+def disk_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def backends_phase(dev, name: str, versions: list[bytes]) -> dict[str, int]:
+    """Each persistent backend's CARD store, built from its config dict on
+    the card: ingest, close, reopen, restore, re-ingest (see the module
+    docstring). Launch counts are reset before each ingest and read after
+    it; returns them summed."""
+    total = sum(len(v) for v in versions)
+    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0}
+    rng = np.random.default_rng(1234)
+    for backend in ("file", "objectstore"):
+        what = f"backends {name} {backend}"
+        root = tempfile.mkdtemp(prefix=f"chip_smoke_{backend}_")
+        try:
+            t_phase = time.perf_counter()
+            cfg = backend_config(backend, root)
+            store = config.build_store(cfg, device=dev)
+            store._clock()
+            ops.reset_launches()
+            integrity.reset_crc32c_stats()
+            t0 = time.perf_counter()
+            store.fit(versions[:1])
+            t1 = time.perf_counter()
+            for v in versions:
+                store.ingest(v)
+            t2 = store._clock()
+            ingest_lc = card_launches(what)
+            crc_ingest = dict(integrity.CRC32C_STATS)
+            st = store.stats
+            counts = (st.chunks, st.dup_chunks, st.delta_chunks, st.raw_chunks)
+            want_dcr, want_stored, *want_counts = BACKEND_REFERENCE[name][backend]
+            if round(st.dcr, 6) != want_dcr or st.bytes_stored != want_stored:
+                fail(f"{what}: DCR {st.dcr} / {st.bytes_stored} bytes stored are not the "
+                     f"reference's {want_dcr} / {want_stored}")
+            if list(counts) != want_counts or counts != MAIN_COUNTS[name]:
+                fail(f"{what}: counts {counts} are not the reference's {want_counts} "
+                     f"and phase 4's {MAIN_COUNTS[name]}")
+            ingest = dict(seconds=t2 - t1, mb_per_s=total / 1e6 / (t2 - t1), fit_s=t1 - t0,
+                          store_s=st.store_seconds, delta_s=st.delta_seconds,
+                          chunk_s=st.chunk_seconds, detect_s=st.detect_seconds)
+            store.close()
+            on_disk = disk_bytes(root)
+
+            # a fresh store from the same dict on the same directory
+            integrity.reset_crc32c_stats()
+            t0 = time.perf_counter()
+            store = config.build_store(cfg, device=dev)
+            open_s = time.perf_counter() - t0
+            cold = restore_all(store, versions, f"{what} cold")
+            warm = restore_all(store, versions, f"{what} warm")
+            crc_restore = dict(integrity.CRC32C_STATS)
+            for h, v in enumerate(versions):
+                if hashlib.sha256(b"".join(store.restore_iter(h))).digest() != \
+                        hashlib.sha256(v).digest():
+                    fail(f"{what}: restore_iter of version {h} differs")
+                if store.stream_length(h) != len(v):
+                    fail(f"{what}: stream_length of version {h} is {store.stream_length(h)}")
+            for _ in range(RANGE_SLICES):
+                h = int(rng.integers(len(versions)))
+                off = int(rng.integers(len(versions[h])))
+                ln = int(rng.integers(1, 1 << 21))
+                if store.restore_range(h, off, ln) != versions[h][off:off + ln]:
+                    fail(f"{what}: restore_range({h}, {off}, {ln}) differs")
+
+            # fit again (the detector index lives in memory) and re-ingest
+            reopened_max = store.backend.max_chunk_id()
+            before = set(store.backend.chunk_ids())
+            store._clock()
+            ops.reset_launches()
+            store.fit(versions[:1])
+            report = store.open_stream()
+            report.write(versions[3])
+            report = report.commit()
+            store._clock()
+            # the reopened detector's index is empty while version 3 is
+            # scored, under kernel C's gate (512 rows, as the reference's):
+            # C serves the 4-version ingests above, not this one
+            reingest_lc = card_launches(f"{what} re-ingest", need=("gear_scan", "shingle_embed"))
+            added = set(store.backend.chunk_ids()) - before
+            if not added or min(added) <= reopened_max or \
+                    len(added) != report.delta_chunks + report.raw_chunks:
+                fail(f"{what}: the re-ingest stored {len(added)} chunks from id "
+                     f"{min(added, default=None)}; the reopened max_chunk_id is {reopened_max}")
+            restore_all(store, list(versions) + [versions[3]], f"{what} after re-ingest")
+
+            retries = None
+            if backend == "objectstore":
+                store.backend._cache.retain(lambda cid: False)     # cold: GETs happen
+                store.backend.client.fault_hook = faults.FaultSchedule({"get": [2]})
+                if store.restore(1) != versions[1]:
+                    fail(f"{what}: version 1 did not restore under a fault schedule")
+                retries = store.backend.retries
+                if retries <= 0:
+                    fail(f"{what}: the fault schedule was never retried")
+            store.close()
+            for k in launches:
+                launches[k] += ingest_lc[k] + reingest_lc[k]
+            emit("backends", workload=name, backend=backend, base_mib=BASE / 2**20,
+                 versions=len(versions), bytes_in=total, dcr=st.dcr, dcr_reference=want_dcr,
+                 bytes_stored=st.bytes_stored, record_overhead=store.backend.record_overhead,
+                 counts=list(counts), ingest=ingest, disk_bytes=on_disk, open_s=open_s,
+                 cold=cold, warm=warm, restored="sha256-identical",
+                 ranges=RANGE_SLICES, reopened_max_chunk_id=reopened_max,
+                 reingest=dict(handle=report.handle, new_chunks=len(added),
+                               first_new_id=min(added), dcr=report.dcr,
+                               seconds=report.chunk_seconds + report.detect_seconds
+                               + report.delta_seconds + report.store_seconds),
+                 crc32c=dict(route=integrity.crc32c_route(), ingest=crc_ingest,
+                             restore=crc_restore),
+                 retries=retries, launches={"ingest": ingest_lc, "reingest": reingest_lc},
+                 phase_s=time.perf_counter() - t_phase)
+            del store
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
     return launches
 
 
@@ -998,6 +1199,9 @@ def main() -> int:
         device_share(name, versions[:2])
     for name, versions in main_versions.items():
         for k, v in baselines_phase(dev, name, versions).items():
+            launches[k] += v
+    for name, versions in main_versions.items():
+        for k, v in backends_phase(dev, name, versions).items():
             launches[k] += v
     small = workloads.make_workload(
         "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))

@@ -15,13 +15,17 @@ own registry, ``api/registry.py``) plus keyword arguments for its factory:
 ``to_dict`` round-trips, so one dict means the same in both packages. The
 device is an argument of the ``build_*`` functions, not a config key.
 
-Components that are not ported yet are refused, never silently dropped:
-a knob that needs one raises ``NotImplementedError`` naming its ROADMAP
-Queue 1 item. Backends other than ``"memory"`` are not registered yet.
+The serving knobs (``restore_*``, ``verify_reads``, ``retry_deadline``)
+reach the backend factory as the reference forwards them. Components that
+are not ported yet are refused, never silently dropped: a knob that needs
+one raises ``NotImplementedError`` naming its ROADMAP Queue 1 item.
+Backends: ``"memory"``, ``"file"`` and ``"objectstore"``; ``"s3"`` needs
+boto3 and is not ported (its lookup raises ``KeyError``).
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any
 
 import torch
@@ -44,18 +48,22 @@ _INT_KNOB_FLOORS = {"restore_cache_bytes": 1, "restore_cache_shards": 1,
                     "restore_reader_fds": 1, "restore_readahead": 0,
                     "restore_coalesce_gap": 0, "restore_tier_bytes": 1}
 
+# serving / integrity knobs -> backend factory kwargs; each is forwarded
+# only when set and only to factories that declare the kwarg (the memory
+# backend has no decode cache or reader pool and takes none)
+_BACKEND_KNOBS = {"restore_cache_bytes": "cache_bytes",
+                  "restore_cache_shards": "cache_shards",
+                  "restore_cache_policy": "cache_policy",
+                  "restore_reader_fds": "reader_fds",
+                  "restore_readahead": "readahead",
+                  "restore_coalesce_gap": "coalesce_gap",
+                  "restore_tier_path": "tier_path",
+                  "restore_tier_bytes": "tier_bytes",
+                  "verify_reads": "verify_reads",
+                  "retry_deadline": "retry_deadline"}
+
 # knobs whose component the port does not have yet -> what is missing
 _UNPORTED = {
-    "restore_cache_bytes": "the restore planner and decode cache (ROADMAP Queue 1 item 4)",
-    "restore_cache_shards": "the restore planner and decode cache (ROADMAP Queue 1 item 4)",
-    "restore_cache_policy": "the restore planner and decode cache (ROADMAP Queue 1 item 4)",
-    "restore_reader_fds": "the file backend's reader pool (ROADMAP Queue 1 item 3)",
-    "restore_readahead": "the restore planner (ROADMAP Queue 1 item 4)",
-    "restore_coalesce_gap": "the file and object-store backends (ROADMAP Queue 1 item 3)",
-    "restore_tier_path": "the object-store backend's disk tier (ROADMAP Queue 1 item 3)",
-    "restore_tier_bytes": "the object-store backend's disk tier (ROADMAP Queue 1 item 3)",
-    "verify_reads": "checksummed backends (ROADMAP Queue 1 item 3)",
-    "retry_deadline": "the object-store backend (ROADMAP Queue 1 item 3)",
     "trace_path": "observability (ROADMAP Queue 1 item 4)",
     "trace_ring_events": "observability (ROADMAP Queue 1 item 4)",
     "server_workers": "the multi-tenant server (ROADMAP Queue 1 item 4)",
@@ -170,7 +178,24 @@ def build_chunker(cfg: DedupConfig) -> Any:
 
 
 def build_backend(cfg: DedupConfig) -> Any:
-    return registry.get_backend(cfg.backend)(**cfg.backend_args)
+    """The backend factory with ``backend_args``, plus each serving knob
+    that is set, under its factory kwarg, where the factory declares it
+    (an uninspectable factory gets an error, never a dropped knob)."""
+    factory = registry.get_backend(cfg.backend)
+    args = dict(cfg.backend_args)
+    wanted = {kwarg: getattr(cfg, name)
+              for name, kwarg in _BACKEND_KNOBS.items()
+              if getattr(cfg, name) is not None and kwarg not in args}
+    if wanted:
+        try:
+            params = inspect.signature(factory).parameters
+        except (TypeError, ValueError) as e:
+            raise ValueError(
+                f"serving knobs {sorted(wanted)} are set but backend "
+                f"{cfg.backend!r} has an uninspectable factory signature; "
+                "pass them via backend_args instead") from e
+        args.update({k: v for k, v in wanted.items() if k in params})
+    return factory(**args)
 
 
 def build_store(cfg: DedupConfig, device: str | torch.device | None = None) -> DedupStore:

@@ -7,10 +7,12 @@ anywhere in the port registers into the reference's registry.
     detectors       "card", "finesse", "n-transform", "dedup-only"
     indexes         "exact" (cosine top-1)
     chunkers        "fastcdc" (a ChunkerConfig factory)
-    backends        "memory"
+    backends        "memory", "file", "objectstore" ("s3" needs boto3 and
+                    is not ported: its lookup raises a KeyError that says
+                    so)
     policies        none yet (ROADMAP Queue 1 item 4; the config path
                     takes the default "never" only)
-    cache policies  none yet (Queue 1 item 4)
+    cache policies  "lru", "arc" (decode-cache eviction, api/restore.py)
 
 Built-ins register themselves with the decorators at their definition
 site (e.g. ``@register_index("exact")`` in core/similarity.py). Factories
@@ -36,13 +38,20 @@ _CACHE_POLICIES: dict[str, Callable[..., Any]] = {}
 
 _builtins_loaded = False
 
+# names the reference registers that the port does not have -> why; their
+# lookup raises the port's KeyError with this reason
+_UNPORTED_NAMES = {
+    ("backend", "s3"): "backend 's3' needs boto3 (S3ObjectClient), which is "
+                       "not installed, and is not ported; use 'objectstore'",
+}
+
 
 def _ensure_builtins() -> None:
     """Import the modules whose import side effect registers built-ins."""
     global _builtins_loaded
     if _builtins_loaded:
         return
-    from repro_torch.api import containers  # noqa: F401
+    from repro_torch.api import containers, objectstore, restore  # noqa: F401
     from repro_torch.core import chunking, pipeline, similarity  # noqa: F401
     _CHUNKERS.setdefault("fastcdc", chunking.ChunkerConfig)
     # only after every import succeeded: a failure above must surface
@@ -70,6 +79,9 @@ def _make_get(table: dict[str, Callable[..., Any]],
         try:
             return table[name]
         except KeyError:
+            why = _UNPORTED_NAMES.get((kind, name))
+            if why is not None:
+                raise KeyError(why) from None
             raise KeyError(
                 f"unknown {kind} {name!r}; available: "
                 f"{sorted(table)}") from None

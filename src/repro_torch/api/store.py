@@ -1,6 +1,7 @@
 """Session-oriented dedup + delta-compression store (port of
-``repro.api.store``: the ingest and restore path, without locks,
-deadlines, observability, lifecycle or the file/objectstore backends).
+``repro.api.store``: ingest, the restore read path and close; without the
+lifecycle lock, observability, reclamation, scrub or the digest-table
+seam).
 
     session = store.open_stream()
     session.write(part1); session.write(part2)   # stage bytes
@@ -10,37 +11,58 @@ deadlines, observability, lifecycle or the file/objectstore backends).
 Commit runs the reference's passes: 0 chunk (kernel A scan + host
 boundary walk); 1 exact dedup by blake2b and id assignment; 2 extract,
 score (kernels B and C); 3a delta-vs-raw decisions over a worklist;
-3b one group write plus the recipe; then the detector observes the
-stream. ``DedupStore`` runs on the CUDA device unless given
-``device="cpu"``.
+3b one group write plus the recipe (with its chunk lengths, when the
+backend takes them); then the detector observes the stream. Ids start
+past the backend's ``max_chunk_id()``, so a store reopened on a
+persistent backend never reissues a stored id, and every stored record
+counts the backend's ``record_overhead``.
+
+``restore``, ``restore_iter`` and ``restore_range`` go through the
+backend's planned ``get_many`` and record a ``RestoreReport``
+(``store.last_restore``). ``DedupStore`` runs on the CUDA device unless
+given ``device="cpu"``; its backend is host code and takes no device.
 """
 from __future__ import annotations
 
+import inspect
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.api import containers
+from repro_torch.api.concurrency import accumulate, check_deadline, zero_deltas
 from repro_torch.api.detect import is_staged
-from repro_torch.api.types import DetectBatch, IngestReport, StoreStats
+from repro_torch.api.restore import RecipeLayout
+from repro_torch.api.types import DetectBatch, IngestReport, RestoreReport, StoreStats
 from repro_torch.core import chunking, delta
-from repro_torch.kernels import ingest, ops
+from repro_torch.kernels import ops
 
 
-def chunk_with(cfg: chunking.ChunkerConfig, stream: bytes,
-               device: torch.device | str):
-    """FastCDC through the device scan: bytes go up, candidate words come
-    back, and the returned stream hashes are a device-resident
-    ``StreamScan`` the detector reads without a round-trip."""
-    buf = np.frombuffer(stream, dtype=np.uint8)
-    n = len(buf)
-    if n == 0:
-        return [], None
-    scan, cand_s, cand_l = ingest.scan_stream(buf, cfg.mask_s, cfg.mask_l, device)
-    bounds = chunking.select_boundaries(n, cand_s, cand_l, cfg)
-    return chunking.chunks_from_bounds(stream, bounds), scan
+def _accepts_lengths(add_recipe: Any) -> bool:
+    """Whether a backend's ``add_recipe`` takes the ``lengths`` argument;
+    False when the signature is uninspectable (ranged reads then
+    materialise the recipe once)."""
+    try:
+        params = inspect.signature(add_recipe).parameters
+    except (TypeError, ValueError):
+        return False
+    return "lengths" in params or any(
+        p.kind is inspect.Parameter.VAR_POSITIONAL for p in params.values())
+
+
+def chunk_with(chunker: Any, stream: bytes, device: torch.device | str):
+    """Dispatch chunking through a registered chunker. A chunker with a
+    ``chunk(stream) -> (chunks, stream_hashes)`` method is called as it
+    is; anything else is a FastCDC ``ChunkerConfig`` and goes through
+    kernel A's scan on ``device`` (``chunking.chunk_scan``), whose stream
+    hashes stay on the device for the detector."""
+    if hasattr(chunker, "chunk"):
+        return chunker.chunk(stream)
+    return chunking.chunk_scan(stream, chunker, device)
 
 
 class StreamSession:
@@ -84,7 +106,7 @@ class DedupStore:
 
     def __init__(self, detector: Any,
                  chunker_cfg: chunking.ChunkerConfig | None = None,
-                 backend: containers.InMemoryBackend | None = None,
+                 backend: containers.ContainerBackend | None = None,
                  device: str | torch.device | None = None):
         self.device = ops.resolve_device(device)
         det_device = getattr(detector, "device", None)
@@ -96,7 +118,24 @@ class DedupStore:
         self.stats = StoreStats()
         self.reports: list[IngestReport] = []
         self._by_digest: dict[bytes, int] = {}
-        self._next_id = 0
+        # a reopened (persistent) backend already holds chunk ids; start
+        # past them so new chunks never shadow stored records
+        self._next_id = self.backend.max_chunk_id() + 1
+        # probed once: a TypeError raised inside a two-argument add_recipe
+        # must propagate, not trigger a second (duplicating) append
+        self._recipe_lengths_ok = _accepts_lengths(self.backend.add_recipe)
+        # ranged-restore prefix sums per handle, built lazily
+        self._layouts: dict[int, RecipeLayout] = {}
+        self.last_restore: RestoreReport | None = None
+        # restore_iter's next-batch fetches run on the prefetch pool,
+        # created on first use; _closed (flipped under the stats lock)
+        # stops its creation after close()
+        self._stats_lock = threading.Lock()
+        self._prefetch: ThreadPoolExecutor | None = None
+        self._closed = False
+        # per-thread backend telemetry (None -> lifetime-attribute fallback)
+        self._io_counters = getattr(self.backend, "io_counters", None)
+        self._fold_io = getattr(self.backend, "fold_io_counters", None)
 
     def _clock(self) -> float:
         # stage timings end on the device: wait for queued kernels first
@@ -120,6 +159,8 @@ class DedupStore:
         return self.stats
 
     def _commit_stream(self, stream: bytes) -> IngestReport:
+        check_deadline("commit")
+        self._check_open()
         # pass 0: chunk
         t0 = self._clock()
         chunks, stream_hashes = chunk_with(self.cfg, stream, self.device)
@@ -142,6 +183,10 @@ class DedupStore:
                 self._next_id += 1
                 is_new[i] = True
                 seen_in_stream[dig] = int(ids[i])
+
+        # deadline probes run only in passes 0-3a: after the first
+        # backend write the commit must finish
+        check_deadline("commit")
 
         # pass 2: resemblance detection; a staged detector's index
         # admission (observe) waits until the backend writes succeed, a
@@ -167,16 +212,20 @@ class DedupStore:
             score_seconds = self._clock() - t0
 
         # pass 3a: delta-vs-raw decisions over a worklist; a same-stream
-        # base that is not stored yet resolves from the staged records
+        # base that is not stored yet resolves from the staged records.
+        # Every stored record also costs the backend's per-record
+        # overhead (headers), so the DCR is the container's footprint.
         backend = self.backend
         bytes_in = sum(ck.length for ck in chunks)
         bytes_stored = 0
+        overhead = int(getattr(backend, "record_overhead", 0))
         dup_chunks = int(n - is_new.sum())
         delta_chunks = raw_chunks = 0
         delta_seconds = 0.0
         staged_data: dict[int, bytes] = {}
         records: list[tuple[int, int, bytes, bytes | None]] = []
         for i in np.flatnonzero(is_new):
+            check_deadline("commit")    # last shed point: nothing written yet
             ck = chunks[i]
             cid = int(ids[i])
             entry = None
@@ -191,11 +240,11 @@ class DedupStore:
                     delta_seconds += time.perf_counter() - t0
                     if len(d) < ck.length:
                         entry = (cid, base, d, ck.data)
-                        bytes_stored += len(d)
+                        bytes_stored += len(d) + overhead
                         delta_chunks += 1
             if entry is None:
                 entry = (cid, -1, ck.data, None)
-                bytes_stored += ck.length
+                bytes_stored += ck.length + overhead
                 raw_chunks += 1
             records.append(entry)
             staged_data[cid] = ck.data
@@ -203,10 +252,22 @@ class DedupStore:
         # pass 3b: one batched backend write + recipe + flush; digests are
         # registered only after the writes succeed
         t0 = time.perf_counter()
-        backend.put_many(records)
+        put_many = getattr(backend, "put_many", None)
+        if put_many is not None:
+            put_many(records)
+        else:                       # third-party backends: per-chunk puts
+            for cid, base, payload, data in records:
+                if base < 0:
+                    backend.put_raw(cid, payload)
+                else:
+                    backend.put_delta(cid, base, payload, data=data)
         for i, (cid, _base, _payload, _data) in zip(np.flatnonzero(is_new), records):
             self._by_digest[digests[i]] = cid
-        handle = backend.add_recipe(ids)
+        recipe = [int(c) for c in ids]
+        if self._recipe_lengths_ok:     # persist lengths for ranged restores
+            handle = backend.add_recipe(recipe, [int(ck.length) for ck in chunks])
+        else:
+            handle = backend.add_recipe(recipe)
         backend.flush()
         store_seconds = time.perf_counter() - t0
 
@@ -223,14 +284,185 @@ class DedupStore:
             chunk_seconds=chunk_seconds, delta_seconds=delta_seconds,
             extract_seconds=extract_seconds, score_seconds=score_seconds,
             observe_seconds=observe_seconds, store_seconds=store_seconds)
-        self.reports.append(report)
-        self.stats.absorb(report)
+        with self._stats_lock:
+            self.reports.append(report)
+            self.stats.absorb(report)
         return report
+
+    # --- serving path (api/restore.py) ---------------------------------------
 
     def restore(self, handle: int) -> bytes:
         """Reconstruct a committed stream byte for byte by its handle;
-        each distinct chunk is materialised once."""
+        each distinct chunk is materialised once, through the backend's
+        planned ``get_many``. Raises KeyError for a retired stream and
+        IndexError for a handle the store never issued."""
         recipe = self.backend.recipe(handle)
-        uniq = list(dict.fromkeys(recipe))
-        data = dict(zip(uniq, self.backend.get_many(uniq)))
-        return b"".join(data[cid] for cid in recipe)
+        t0 = time.perf_counter()
+        data, d = self._fetch_counted(recipe)
+        out = b"".join(data[cid] for cid in recipe)
+        self._note_restore(handle, len(out), len(recipe), time.perf_counter() - t0, d)
+        return out
+
+    def restore_iter(self, handle: int, batch_chunks: int = 256):
+        """Stream a committed object as chunk-aligned ``bytes`` pieces,
+        ``batch_chunks`` recipe slots at a time (one planned ``get_many``
+        a batch). While the caller consumes batch k, batch k+1 is fetched
+        on the prefetch pool. Same errors as ``restore``, raised at call
+        time; the ``RestoreReport`` is recorded when the iterator is
+        exhausted."""
+        recipe = self.backend.recipe(handle)    # raise before iterating
+
+        def gen():
+            t0 = time.perf_counter()
+            acc = zero_deltas()
+            total = 0
+            fut = None
+            try:
+                for i in range(0, len(recipe), batch_chunks):
+                    part = recipe[i:i + batch_chunks]
+                    if fut is not None:
+                        data, d = fut.result()
+                        fut = None
+                    else:
+                        data, d = self._fetch_counted(part)
+                    accumulate(acc, d)
+                    nxt = recipe[i + batch_chunks:i + 2 * batch_chunks]
+                    if nxt:     # overlap the next fetch with consumption
+                        fut = self._prefetch_pool().submit(self._prefetch_fetch, nxt)
+                    for cid in part:
+                        piece = data[cid]
+                        total += len(piece)
+                        yield piece
+            finally:
+                if fut is not None:     # abandoned mid-stream
+                    fut.cancel()
+            self._note_restore(handle, total, len(recipe), time.perf_counter() - t0, acc)
+
+        return gen()
+
+    def restore_range(self, handle: int, offset: int, length: int) -> bytes:
+        """Serve ``stream[offset:offset + length]``: the recipe's prefix
+        sums map the range onto the minimal chunk window, so only the
+        chunks it overlaps are read and decoded. Ranges are clamped to the
+        stream's end; a negative offset or length raises ValueError."""
+        recipe = self.backend.recipe(handle)
+        t0 = time.perf_counter()
+        acc = zero_deltas()
+        first, last, skip = self._layout(handle, recipe, acc).chunk_window(offset, length)
+        if last < first:
+            self._note_restore(handle, 0, 0, time.perf_counter() - t0, acc)
+            return b""
+        part = recipe[first:last + 1]
+        data, d = self._fetch_counted(part)
+        accumulate(acc, d)
+        blob = b"".join(data[cid] for cid in part)
+        out = blob[skip:skip + min(length, len(blob) - skip)]
+        self._note_restore(handle, len(out), len(part), time.perf_counter() - t0, acc)
+        return out
+
+    def stream_length(self, handle: int) -> int:
+        """Total materialised bytes of a committed stream (no decoding
+        when the backend kept the recipe's lengths)."""
+        return self._layout(handle, self.backend.recipe(handle)).total_bytes
+
+    def _fetch_unique(self, cids: Sequence[int]) -> dict[int, bytes]:
+        """Materialise each distinct chunk id once: planned ``get_many``
+        when the backend has it, per-chunk ``get`` otherwise."""
+        uniq = list(dict.fromkeys(int(c) for c in cids))
+        get_many = getattr(self.backend, "get_many", None)
+        if get_many is not None:
+            return dict(zip(uniq, get_many(uniq)))
+        return {cid: self.backend.get(cid) for cid in uniq}
+
+    def _fetch_counted(self, cids: Sequence[int]) -> tuple[dict, list]:
+        """``_fetch_unique`` plus this thread's I/O counter deltas; the
+        snapshot pair runs on the fetching thread, so the deltas are
+        exact per call even when it runs on the prefetch pool."""
+        check_deadline("restore")
+        self._check_open()
+        snap = self._backend_counters()
+        data = self._fetch_unique(cids)
+        now = self._backend_counters()
+        return data, [now[i] - snap[i] for i in range(len(snap))]
+
+    def _prefetch_fetch(self, cids: Sequence[int]) -> tuple[dict, list]:
+        """``_fetch_counted`` as a prefetch-pool task: folds the pool
+        thread's telemetry record when done (pool threads outlive the
+        task, so lifetime totals must not wait for thread exit)."""
+        try:
+            return self._fetch_counted(cids)
+        finally:
+            if self._fold_io is not None:
+                self._fold_io()
+
+    def _prefetch_pool(self) -> ThreadPoolExecutor:
+        pool = self._prefetch
+        if pool is None:
+            with self._stats_lock:
+                # never recreate the pool after close() drained it
+                if self._closed:
+                    raise RuntimeError("store is closed")
+                if self._prefetch is None:
+                    self._prefetch = ThreadPoolExecutor(
+                        max_workers=4, thread_name_prefix="repro-prefetch")
+                pool = self._prefetch
+        return pool
+
+    def _layout(self, handle: int, recipe: Sequence[int],
+                acc: list | None = None) -> RecipeLayout:
+        layout = self._layouts.get(handle)
+        if layout is None:
+            lengths = None
+            recipe_lengths = getattr(self.backend, "recipe_lengths", None)
+            if recipe_lengths is not None:
+                lengths = recipe_lengths(handle)
+            if lengths is None:     # recipe without lengths: materialise once
+                data, d = self._fetch_counted(recipe)
+                if acc is not None:
+                    accumulate(acc, d)
+                lengths = [len(data[cid]) for cid in recipe]
+            layout = RecipeLayout(lengths)
+            self._layouts[handle] = layout
+        return layout
+
+    def _backend_counters(self) -> tuple:
+        """This thread's backend I/O counters (concurrency.COUNTER_FIELDS
+        order); backends without per-thread telemetry give their lifetime
+        totals, or zeros."""
+        if self._io_counters is not None:
+            return self._io_counters()
+        b = self.backend
+        return (getattr(b, "read_seconds", 0.0), getattr(b, "decode_seconds", 0.0),
+                getattr(b, "bytes_read", 0), getattr(b, "cache_hits", 0),
+                getattr(b, "cache_misses", 0), getattr(b, "prefetch_bytes", 0),
+                getattr(b, "read_requests", 0))
+
+    def _note_restore(self, handle: int, bytes_out: int, chunks: int,
+                      seconds: float, d: Sequence) -> None:
+        report = RestoreReport(
+            handle=handle, bytes_out=bytes_out, chunks=chunks, seconds=seconds,
+            read_seconds=d[0], decode_seconds=d[1], bytes_read=int(d[2]),
+            cache_hits=int(d[3]), cache_misses=int(d[4]),
+            prefetch_bytes=int(d[5]), requests=int(d[6]))
+        with self._stats_lock:
+            self.last_restore = report
+            self.stats.absorb_restore(report)
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("store is closed")
+
+    def close(self) -> None:
+        """Idempotent: drain the prefetch pool, then close the backend
+        (its reader fds and pools). Callers finish their restores first
+        (the reference's lifecycle lock, which would wait for them, comes
+        with store concurrency); a commit, restore or partly consumed
+        ``restore_iter`` after close raises RuntimeError."""
+        with self._stats_lock:
+            if self._closed:
+                return
+            self._closed = True
+        if self._prefetch is not None:
+            self._prefetch.shutdown(wait=True)
+            self._prefetch = None
+        self.backend.close()

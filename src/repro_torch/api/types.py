@@ -5,8 +5,11 @@ only the fields this port fills).
   DetectResult   per-chunk resemblance verdict (base chunk id, score);
   IngestReport   immutable per-stream accounting returned by
                  ``StreamSession.commit()``;
+  RestoreReport  immutable per-restore accounting: bytes served against
+                 container bytes read, read / decode time, decode-cache
+                 hits and misses (``DedupStore.last_restore``);
   StoreStats     the store-lifetime aggregate (sum of every IngestReport
-                 plus offline fit time).
+                 and RestoreReport plus offline fit time).
 """
 from __future__ import annotations
 
@@ -87,10 +90,41 @@ class IngestReport:
         return self.bytes_in / max(1, self.bytes_stored)
 
 
+@dataclasses.dataclass(frozen=True)
+class RestoreReport:
+    """What one restore (full, ranged, or fully-consumed iterator) cost.
+    ``read_seconds``/``decode_seconds``/``bytes_read`` and the cache
+    counters come from backend telemetry deltas; backends without
+    counters (the in-memory one) report zeros there while
+    ``seconds``/``bytes_out`` stay exact."""
+
+    handle: int
+    bytes_out: int = 0          # bytes served to the caller
+    chunks: int = 0             # recipe slots touched
+    seconds: float = 0.0        # end-to-end wall time
+    read_seconds: float = 0.0   # container payload I/O, summed across
+    #                             pooled readers (can exceed the wall
+    #                             share once readahead overlaps decode)
+    decode_seconds: float = 0.0  # delta-chain decoding
+    bytes_read: int = 0         # container bytes fetched (vs bytes_out)
+    cache_hits: int = 0
+    cache_misses: int = 0
+    # container bytes whose read was fully hidden behind decode work
+    prefetch_bytes: int = 0
+    # physical payload reads issued (preads / ranged GETs)
+    requests: int = 0
+
+    @property
+    def read_amplification(self) -> float:
+        """Container bytes read per byte served (< 1 once cache-warm)."""
+        return self.bytes_read / max(1, self.bytes_out)
+
+
 @dataclasses.dataclass
 class StoreStats:
     """Store-lifetime aggregate: the sum of every committed IngestReport
-    plus offline model-fit time."""
+    and RestoreReport plus offline model-fit time (the reference's
+    lifecycle fields come with the lifecycle)."""
 
     bytes_in: int = 0
     bytes_stored: int = 0
@@ -106,6 +140,17 @@ class StoreStats:
     observe_seconds: float = 0.0
     store_seconds: float = 0.0
     fit_seconds: float = 0.0
+    # restore telemetry: the running sum of every absorbed RestoreReport
+    restores: int = 0
+    restore_bytes_out: int = 0
+    restore_bytes_read: int = 0
+    restore_seconds: float = 0.0
+    restore_read_seconds: float = 0.0
+    restore_decode_seconds: float = 0.0
+    restore_cache_hits: int = 0
+    restore_cache_misses: int = 0
+    restore_prefetch_bytes: int = 0
+    restore_requests: int = 0
 
     @property
     def dcr(self) -> float:
@@ -117,3 +162,15 @@ class StoreStats:
                   "chunk_seconds", "delta_seconds", "extract_seconds",
                   "score_seconds", "observe_seconds", "store_seconds"):
             setattr(self, f, getattr(self, f) + getattr(report, f))
+
+    def absorb_restore(self, report: RestoreReport) -> None:
+        self.restores += 1
+        self.restore_bytes_out += report.bytes_out
+        self.restore_bytes_read += report.bytes_read
+        self.restore_seconds += report.seconds
+        self.restore_read_seconds += report.read_seconds
+        self.restore_decode_seconds += report.decode_seconds
+        self.restore_cache_hits += report.cache_hits
+        self.restore_cache_misses += report.cache_misses
+        self.restore_prefetch_bytes += report.prefetch_bytes
+        self.restore_requests += report.requests

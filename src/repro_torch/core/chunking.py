@@ -14,6 +14,9 @@ import dataclasses
 import hashlib
 
 import numpy as np
+import torch
+
+from repro_torch.kernels import ingest, ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,3 +106,27 @@ def chunks_from_bounds(raw: bytes, bounds: np.ndarray) -> list[Chunk]:
         Chunk(offset=int(a), length=int(b - a), data=raw[a:b])
         for a, b in zip(bounds[:-1], bounds[1:])
     ]
+
+
+def chunk_scan(data: bytes | np.ndarray, cfg: ChunkerConfig,
+               device: torch.device | str) -> tuple[list[Chunk], ingest.StreamScan | None]:
+    """FastCDC through the device scan: bytes go up, candidate words come
+    back, the host walks the boundaries. Returns the chunks and the
+    device-resident ``StreamScan`` the detector reads without a round-trip
+    (None for an empty stream)."""
+    buf = (np.frombuffer(data, dtype=np.uint8)
+           if isinstance(data, (bytes, bytearray))
+           else np.asarray(data, dtype=np.uint8))
+    n = len(buf)
+    if n == 0:
+        return [], None
+    scan, cand_s, cand_l = ingest.scan_stream(buf, cfg.mask_s, cfg.mask_l, device)
+    raw = data if isinstance(data, bytes) else buf.tobytes()
+    return chunks_from_bounds(raw, select_boundaries(n, cand_s, cand_l, cfg)), scan
+
+
+def chunk_stream(data: bytes | np.ndarray, cfg: ChunkerConfig | None = None,
+                 device: str | torch.device | None = None) -> list[Chunk]:
+    """Chunk a byte stream: kernel A's scan on ``device`` (the CUDA device
+    unless ``"cpu"``), then the host boundary walk."""
+    return chunk_scan(data, cfg or ChunkerConfig(), ops.resolve_device(device))[0]

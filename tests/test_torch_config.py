@@ -8,7 +8,10 @@ raise ``NotImplementedError``; nothing is silently ignored.
 Test-only registrations go through ``monkeypatch`` on the port's own
 tables (undone at teardown); nothing here registers into the reference's
 registry."""
+import dataclasses
 import functools
+import hashlib
+import inspect
 
 import numpy as np
 import pytest
@@ -130,14 +133,14 @@ def test_registry_listings():
     assert registry.available_detectors() == ["card", "dedup-only", "finesse", "n-transform"]
     assert registry.available_indexes() == ["exact"]
     assert registry.available_chunkers() == ["fastcdc"]
-    assert registry.available_backends() == ["memory"]
+    assert registry.available_backends() == ["file", "memory", "objectstore"]
     assert registry.available_policies() == []
-    assert registry.available_cache_policies() == []
+    assert registry.available_cache_policies() == ["arc", "lru"]
     assert registry.get_chunker("fastcdc") is chunking.ChunkerConfig
     # the reference's own tables hold no port factory
     ref_registry._ensure_builtins()
     for table in (ref_registry._DETECTORS, ref_registry._INDEXES, ref_registry._CHUNKERS,
-                  ref_registry._BACKENDS):
+                  ref_registry._BACKENDS, ref_registry._CACHE_POLICIES):
         assert not any(f.__module__.startswith("repro_torch") for f in table.values())
 
 
@@ -200,19 +203,25 @@ def test_failed_builtin_import_is_retried(monkeypatch):
     assert registry._builtins_loaded is True
 
 
+def test_api_exports_are_reference_names():
+    """``repro_torch.api`` re-exports what is ported under the reference's
+    names, and only names the reference's ``repro.api`` exports too."""
+    from repro_torch import api
+    mine = {n for n in vars(api) if not n.startswith("_")} - {
+        "types", "restore", "concurrency", "detect", "integrity", "faults", "containers",
+        "objectstore", "store", "registry", "config"}         # the submodules
+    missing = [n for n in sorted(mine) if not hasattr(ref_api, n)]
+    assert not missing, f"exported by the port but not by the reference: {missing}"
+    for name in ("build_store", "DedupConfig", "DedupStore", "chunk_with", "FileBackend",
+                 "ObjectStoreBackend", "LocalObjectStore", "InMemoryBackend", "crc32c",
+                 "CorruptChunkError", "CorruptJournalError", "FaultSchedule",
+                 "TransientError", "DeadlineExceededError", "RestoreReport"):
+        assert name in mine and getattr(api, name).__module__.startswith("repro_torch.api")
+
+
 # --- what is not ported raises ---------------------------------------------------
 
 UNPORTED = [
-    ({"restore_cache_bytes": 1 << 20}, "Queue 1 item 4"),
-    ({"restore_cache_shards": 2}, "Queue 1 item 4"),
-    ({"restore_cache_policy": "arc"}, "Queue 1 item 4"),
-    ({"restore_reader_fds": 2}, "Queue 1 item 3"),
-    ({"restore_readahead": 0}, "Queue 1 item 4"),
-    ({"restore_coalesce_gap": 0}, "Queue 1 item 3"),
-    ({"restore_tier_path": "x"}, "Queue 1 item 3"),
-    ({"restore_tier_bytes": 1}, "Queue 1 item 3"),
-    ({"verify_reads": False}, "Queue 1 item 3"),
-    ({"retry_deadline": 1.0}, "Queue 1 item 3"),
     ({"trace_path": "t.jsonl"}, "Queue 1 item 4"),
     ({"trace_ring_events": 0}, "Queue 1 item 4"),
     ({"server_workers": 2}, "Queue 1 item 4"),
@@ -234,17 +243,86 @@ def test_unported_knob_raises(extra, item):
 
 
 @pytest.mark.parametrize("d,err,match", [
-    ({"backend": "file"}, KeyError, "unknown backend 'file'; available: \\['memory'\\]"),
-    ({"backend": "objectstore"}, KeyError, "unknown backend"),
-    ({"backend": "s3"}, KeyError, "unknown backend"),
+    ({"backend": "s3"}, KeyError, "backend 's3' needs boto3 .* not ported"),
+    ({"backend": "nope"}, KeyError,
+     "unknown backend 'nope'; available: \\['file', 'memory', 'objectstore'\\]"),
     ({"detector_args": {"index": "banded-lsh"}}, KeyError,
      "unknown index 'banded-lsh'; available: \\['exact'\\]"),
     ({"chunker": "rabin"}, KeyError, "unknown chunker"),
-], ids=["file", "objectstore", "s3", "banded-lsh", "chunker"])
+], ids=["s3", "nope", "banded-lsh", "chunker"])
 def test_unregistered_component_raises(d, err, match):
     with pytest.raises(err, match=match):
         config.build_store(config.DedupConfig.from_dict({"detector": "card", **d}),
                            device="cpu")
+
+
+@pytest.mark.parametrize("backend,cls", [("file", "FileBackend"),
+                                         ("objectstore", "ObjectStoreBackend")])
+def test_persistent_backends_build(tmp_path, backend, cls):
+    """Both names build through the port's registry (they raised before
+    the backends were ported)."""
+    store = config.build_store(config.DedupConfig.from_dict(
+        {"detector": "dedup-only", "backend": backend,
+         "backend_args": {"path": str(tmp_path / backend)}}), device="cpu")
+    assert type(store.backend).__name__ == cls
+    assert type(store.backend).__module__.startswith("repro_torch.api.")
+    store.close()
+
+
+# one value for each knob _BACKEND_KNOBS forwards
+KNOB_VALUES = {"restore_cache_bytes": 1 << 20, "restore_cache_shards": 2,
+               "restore_cache_policy": "arc", "restore_reader_fds": 2,
+               "restore_readahead": 0, "restore_coalesce_gap": 0,
+               "restore_tier_path": "TIER", "restore_tier_bytes": 4096,
+               "verify_reads": True, "retry_deadline": 1.0}
+
+
+def _spy_init(monkeypatch, cls) -> list:
+    """Record the kwargs ``cls`` is built with; ``functools.wraps`` keeps
+    the signature the config path inspects."""
+    seen = []
+    real = cls.__init__
+
+    @functools.wraps(real)
+    def init(self, *args, **kwargs):
+        seen.append(kwargs)
+        real(self, *args, **kwargs)
+
+    monkeypatch.setattr(cls, "__init__", init)
+    return seen
+
+
+@pytest.mark.parametrize("backend", ["file", "objectstore"])
+@pytest.mark.parametrize("knob", sorted(KNOB_VALUES))
+def test_serving_knob_reaches_the_factory_as_in_the_reference(tmp_path, monkeypatch,
+                                                              backend, knob):
+    from repro.api import containers as ref_containers
+    from repro.api import objectstore as ref_objectstore
+    from repro_torch.api import containers, objectstore
+    classes = {"file": (containers.FileBackend, ref_containers.FileBackend),
+               "objectstore": (objectstore.ObjectStoreBackend,
+                               ref_objectstore.ObjectStoreBackend)}[backend]
+    value = KNOB_VALUES[knob]
+    kwargs = []
+    for pkg, cls, name in ((config, classes[0], "port"), (ref_api, classes[1], "ref")):
+        if value == "TIER":
+            value = str(tmp_path / name / "tier")
+        seen = _spy_init(monkeypatch, cls)
+        built = pkg.build_backend(pkg.DedupConfig.from_dict(
+            {"backend": backend, "backend_args": {"path": str(tmp_path / name / "b")},
+             knob: value}))
+        built.close()
+        (got,) = seen
+        got.pop("path")
+        kwargs.append({k: (v.replace(f"/{name}/", "/") if isinstance(v, str) else v)
+                       for k, v in got.items()})
+        value = KNOB_VALUES[knob]
+    assert kwargs[0] == kwargs[1]
+    kwarg = config._BACKEND_KNOBS[knob]
+    declared = kwarg in inspect.signature(classes[0]).parameters
+    assert kwargs[0] == ({kwarg: kwargs[0][kwarg]} if declared else {})
+    if declared and knob != "restore_tier_path":
+        assert kwargs[0][kwarg] == value
 
 
 def test_use_kernel_false():
@@ -321,3 +399,92 @@ def test_build_store_matches_reference(name):
         assert port.stats.delta_chunks > 0
     for h, v in enumerate(versions):
         assert port.restore(h) == v
+
+
+def _stats_key(stats) -> dict:
+    """Every field of the port's StoreStats but the timing ones: seconds,
+    and the read bytes that readahead happened to hide behind decode."""
+    return {f.name: getattr(stats, f.name) for f in dataclasses.fields(stats)
+            if not f.name.endswith("seconds") and f.name != "restore_prefetch_bytes"}
+
+
+def _sha(b: bytes) -> bytes:
+    return hashlib.sha256(b).digest()
+
+
+@pytest.mark.parametrize("backend", ["memory", "file", "objectstore"])
+def test_build_store_on_each_backend_matches_reference(tmp_path, backend):
+    """One CARD dict per backend through both packages (sql_dump 1 MiB x 3,
+    serving knobs set): equal reports (the file backend's record header
+    counted), stats, DCR, restores, ranges and stream lengths; then both
+    closed and rebuilt from the same dict on the same directory, where
+    every stream restores SHA-identical, and a fresh fit and ingest give
+    new chunk ids above the reopened ``max_chunk_id()`` in both."""
+    versions = _versions()
+    persistent = backend != "memory"
+
+    def d(name):
+        out = {**DICTS["card"], "backend": backend}
+        if persistent:
+            out.update(backend_args={"path": str(tmp_path / name)},
+                       restore_cache_bytes=1 << 20, restore_reader_fds=2,
+                       restore_readahead=2, verify_reads=backend == "file")
+        return out
+
+    ref = ref_api.build_store(ref_api.DedupConfig.from_dict(d("ref")))
+    port = config.build_store(config.DedupConfig.from_dict(d("port")), device="cpu")
+    for store in (ref, port):
+        store.fit(versions[:1])
+        for v in versions:
+            store.ingest(v)
+    assert [_report_key(r) for r in port.reports] == [_report_key(r) for r in ref.reports]
+    overhead = {"memory": 0, "file": 29, "objectstore": 0}[backend]
+    assert port.backend.record_overhead == ref.backend.record_overhead == overhead
+    st = port.stats
+    assert st.bytes_stored == sum(len(port.backend.record(c)[2])
+                                  for c in port.backend.chunk_ids()) + overhead * (
+        st.delta_chunks + st.raw_chunks)
+    rng = np.random.default_rng(7)
+    for h, v in enumerate(versions):
+        assert _sha(port.restore(h)) == _sha(ref.restore(h)) == _sha(v)
+        assert (b"".join(port.restore_iter(h, batch_chunks=16))
+                == b"".join(ref.restore_iter(h, batch_chunks=16)) == v)
+        assert port.stream_length(h) == ref.stream_length(h) == len(v)
+        for _ in range(4):
+            off, ln = int(rng.integers(0, len(v))), int(rng.integers(0, 200_000))
+            assert port.restore_range(h, off, ln) == ref.restore_range(h, off, ln) == v[off:off + ln]
+    assert port.stats.dcr == ref.stats.dcr
+    assert _stats_key(port.stats) == {k: v for k, v in _stats_key(ref.stats).items()
+                                      if k in _stats_key(port.stats)}
+    if not persistent:
+        return
+    ref.close()
+    port.close()
+    with pytest.raises(RuntimeError, match="store is closed"):
+        port.restore(0)
+    ref = ref_api.build_store(ref_api.DedupConfig.from_dict(d("ref")))
+    port = config.build_store(config.DedupConfig.from_dict(d("port")), device="cpu")
+    stored = port.backend.max_chunk_id()
+    assert stored == ref.backend.max_chunk_id() == max(max(r) for r in
+                                                        (port.backend.recipe(h) for h in range(3)))
+    for h, v in enumerate(versions):
+        assert _sha(port.restore(h)) == _sha(ref.restore(h)) == _sha(v)
+        assert port.last_restore.bytes_read == ref.last_restore.bytes_read > 0
+        assert port.restore_range(h, 1000, 5000) == ref.restore_range(h, 1000, 5000) == (
+            v[1000:6000])
+    before = set(port.backend.chunk_ids())
+    for store in (ref, port):
+        store.fit(versions[:1])
+        store.ingest(versions[2])
+    last = port.reports[-1]
+    assert _report_key(last) == _report_key(ref.reports[-1])
+    # the digest table starts empty on a reopen: every chunk is stored anew,
+    # under ids past the persisted ones (none overwritten)
+    added = set(port.backend.chunk_ids()) - before
+    assert len(added) == last.delta_chunks + last.raw_chunks > 0
+    assert min(added) == stored + 1 and set(port.backend.recipe(3)) == added
+    assert sorted(port.backend.chunk_ids()) == sorted(ref.backend.chunk_ids())
+    for h, v in enumerate(list(versions) + [versions[2]]):
+        assert _sha(port.restore(h)) == _sha(v)
+    ref.close()
+    port.close()

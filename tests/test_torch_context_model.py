@@ -7,6 +7,7 @@ import re
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro import optim
@@ -135,3 +136,29 @@ def test_make_training_pairs_and_loss_match_reference():
     port.set_params(np.asarray(init.w), np.asarray(init.u))
     got = port.loss_fn(torch.from_numpy(ctx), torch.from_numpy(tgt)).detach().item()
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_ingest_before_fit_raises_runtime_error():
+    """The port differs from the reference here on purpose. A CARD store
+    built by ``build_store`` that ingests before ``fit`` raises
+    ``RuntimeError: fit() or load() first`` in the port; the reference
+    fails on an ``assert`` (``repro/core/context_model.py:139``), which is
+    gone under ``python -O``, so a plain exception is the sounder check.
+    Nothing is stored and the store keeps working after a fit."""
+    from repro import api as ref_api
+    from repro_torch.api import config
+
+    stream = bytes(np.random.default_rng(3).integers(0, 256, 200_000, np.uint8))
+    d = {"detector": "card", "chunker_args": {"avg_size": 8192},
+         "detector_args": {"model": {"m": 64, "d": 50, "steps": 20}, "use_kernel": False}}
+    store = config.build_store(config.DedupConfig.from_dict(d), device="cpu")
+    with pytest.raises(RuntimeError, match=re.escape("fit() or load() first")):
+        store.ingest(stream)
+    assert store.reports == [] and store.backend.chunk_ids() == []
+    ref = ref_api.build_store(ref_api.DedupConfig.from_dict(d))
+    with pytest.raises(AssertionError, match=re.escape("fit() first")):
+        ref.ingest(stream)
+    store.fit([stream])
+    handle = store.open_stream()
+    handle.write(stream)
+    assert store.restore(handle.commit().handle) == stream

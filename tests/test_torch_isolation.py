@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.api import config
 from repro_torch.api.store import DedupStore
-from repro_torch.core import context_model, features, pipeline, similarity
+from repro_torch.core import chunking, context_model, features, pipeline, similarity
 from repro_torch.kernels import ops
 
 torch.set_num_threads(1)
@@ -59,8 +59,12 @@ def test_the_checker_sees_forbidden_imports(tmp_path):
     lambda: pipeline.ntransform_detector(),
     lambda: config.build_store(config.DedupConfig(detector="dedup-only")),
     lambda: config.build_detector(config.DedupConfig()),
+    lambda: chunking.chunk_stream(b"a stream"),
+    lambda: config.build_store(config.DedupConfig(detector="dedup-only", backend="objectstore",
+                                                  backend_args={"path": "never-made"})),
 ], ids=["detector", "extractor", "context_model", "index", "store", "resolve",
-        "null_detector", "finesse", "n_transform", "build_store", "build_detector"])
+        "null_detector", "finesse", "n_transform", "build_store", "build_detector",
+        "chunk_stream", "build_store_objectstore"])
 def test_cuda_default_raises_without_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
