@@ -64,6 +64,25 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               workload and backend: DCR, counts, ingest MB/s, store seconds,
               cold / warm restore MB/s, bytes read, requests and read
               amplification, bytes on disk, the crc32c route and its seconds;
+  4d. lifecycle  space reclamation on three CARD stores built from dicts
+              on the card ("file" with verify_reads and policy "never" for
+              both workloads, "objectstore" with policy "threshold", ratio
+              0.25, for sql_dump): ingest the 4 versions, delete versions 0
+              and 1 (each deleted handle raises KeyError), collect,
+              compact, re-ingest version 0 against an index that still
+              holds the swept rows (kernels A, B and C must launch there),
+              restore every live stream SHA-256-identically, scrub clean,
+              close, reopen, scrub and restore again, seed the digest
+              table from the closed store's snapshot and ingest version 3
+              again (no new chunk). Every count, report and byte total is
+              pinned to the JAX package's (scripts/lifecycle_dcr.py runs
+              the same steps). One JSON line a store (DCR before and the
+              survivors' after, reclaimable and reclaimed bytes, the
+              rebase mix, delete / collect / compact / scrub seconds,
+              restore MB/s, the crc32c route, launches); then the crash
+              drill ("lifecycle_crash"): the crash-matrix script crashed at
+              one compaction crashpoint a backend, copied, reopened, and
+              the post-crash contract checked;
   5. fit      the card's context-model fit against a CPU fit from the
               same init and batch stream (per-step loss, transform);
   6. parity   the port on the card and on the CPU over kernel-workload
@@ -777,12 +796,14 @@ def backend_config(backend: str, root: str) -> config.DedupConfig:
         **({"verify_reads": True} if backend == "file" else {})})
 
 
-def card_launches(what: str, need=("gear_scan", "shingle_embed", "sim_topk")
-                  ) -> dict[str, int]:
-    """Kernels A, B and C's launches since the last reset; fails unless
-    each kernel in ``need`` launched."""
-    lc = {"gear_scan": ops.LAUNCHES["scan_candidates"] + ops.LAUNCHES["gear_hashes"],
-          "shingle_embed": ops.LAUNCHES["shingle_embed"], "sim_topk": ops.LAUNCHES["sim_topk"]}
+def card_launches(what: str, need=("gear_scan", "shingle_embed", "sim_topk"),
+                  counts: dict[str, int] | None = None) -> dict[str, int]:
+    """Kernels A, B and C's launches since the last reset (or in
+    ``counts``, wrapper counts of one stretch); fails unless each kernel
+    in ``need`` launched."""
+    c = ops.LAUNCHES if counts is None else counts
+    lc = {"gear_scan": c["scan_candidates"] + c["gear_hashes"],
+          "shingle_embed": c["shingle_embed"], "sim_topk": c["sim_topk"]}
     if min(lc[k] for k in need) <= 0:
         fail(f"{what}: a kernel of the path was never launched: {lc}")
     return lc
@@ -927,6 +948,402 @@ def backends_phase(dev, name: str, versions: list[bytes]) -> dict[str, int]:
         finally:
             shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+# --- phase 4d: space reclamation on the card ----------------------------------
+
+# BENCH_GC's layout: 4 versions, retain the last 2. Each store: (workload,
+# backend, policy, policy_args); the threshold store auto-compacts on a
+# delete through the policy that build_policy makes from its dict.
+LIFECYCLE_STORES = (("sql_dump", "file", "never", {}),
+                    ("vmdk", "file", "never", {}),
+                    ("sql_dump", "objectstore", "threshold", {"ratio": 0.25}))
+LIFECYCLE_DELETED = (0, 1)
+LIFECYCLE_CARD = {"feat": {"k": 32, "m": 64, "n": 2},
+                  "model": {"m": 64, "d": 50, "steps": 150}, "threshold": 0.3}
+# What scripts/lifecycle_dcr.py printed for each store (the JAX package on
+# a CPU, the same dicts and steps): the card must give exactly these.
+LIFECYCLE_REFERENCE: dict[str, dict] = {
+    "sql_dump/file": {
+        "ingest": [[3526, 0, 3517, 9, 29084034], [3598, 2537, 1061, 0, 1501879], [3668, 2563,
+            1105, 0, 1481104], [3741, 2628, 1113, 0, 1620101]],
+        "dcr_before": 4.105373,
+        "storage_before": 33863918,
+        "deletes": [{"handle": 0, "freed": 8623577, "auto_compacted": False}, {"handle": 1,
+            "freed": 6638705, "auto_compacted": False}],
+        "collect": {"live_chunks": 4781, "pinned_chunks": 1840, "dead_chunks": 184,
+            "live_bytes": 18227491, "pinned_bytes": 14587303, "dead_bytes": 674979,
+            "chain_depth_hist": {"0": 5, "1": 24, "2": 85, "3": 216, "4": 405, "5": 667, "6":
+            768, "7": 727, "8": 680, "9": 551, "10": 354, "11": 170, "12": 83, "13": 29, "14":
+            14, "15": 3}, "reclaimable_bytes": 15262282},
+        "compact": {"epoch": 1, "live_chunks": 4781, "swept_chunks": 2024, "swept_bytes":
+            15262282, "rebased_delta": 2685, "rebased_raw": 58, "bytes_before": 33863946,
+            "bytes_after": 33505924, "reclaimed_bytes": 358022, "skipped": False},
+        "storage_after": 33505924,
+        "reclaimed_bytes": 358022,
+        "dcr_survivors": 2.104645,
+        "stats": {"live_bytes": 33276660, "dead_bytes": 0, "chain_depth_hist": {"0": 5, "1": 24,
+            "2": 85, "3": 216, "4": 405, "5": 667, "6": 768, "7": 727, "8": 680, "9": 551, "10":
+            354, "11": 170, "12": 83, "13": 29, "14": 14, "15": 3}},
+        "reingest": [3526, 1829, 0, 1697, 17153424],
+        "scrub": [6478, 6478, 50380871, 3],
+        "digests": 6478,
+        "scrub_reopened": [6478, 6478, 50380871, 3],
+        "seeds_admitted": 6478,
+        "seeded_ingest": [3741, 3741, 0, 0, 0],
+    },
+    "vmdk/file": {
+        "ingest": [[2370, 0, 1437, 933, 20231553], [2383, 2233, 95, 55, 1233957], [2392, 2251,
+            85, 56, 1200529], [2402, 2269, 87, 46, 1037039]],
+        "dcr_before": 5.66246,
+        "storage_before": 23819992,
+        "deletes": [{"handle": 0, "freed": 1216639, "auto_compacted": False}, {"handle": 1,
+            "freed": 1094746, "auto_compacted": False}],
+        "collect": {"live_chunks": 2526, "pinned_chunks": 115, "dead_chunks": 153, "live_bytes":
+            21310667, "pinned_bytes": 929036, "dead_bytes": 1382349, "chain_depth_hist": {"0":
+            1004, "1": 310, "2": 306, "3": 258, "4": 229, "5": 170, "6": 115, "7": 49, "8": 29,
+            "9": 18, "10": 13, "11": 8, "12": 8, "13": 3, "14": 3, "15": 1, "16": 2},
+            "reclaimable_bytes": 2311385},
+        "compact": {"epoch": 1, "live_chunks": 2526, "swept_chunks": 268, "swept_bytes":
+            2311385, "rebased_delta": 165, "rebased_raw": 33, "bytes_before": 23820020,
+            "bytes_after": 21927068, "reclaimed_bytes": 1892952, "skipped": False},
+        "storage_after": 21927068,
+        "reclaimed_bytes": 1892952,
+        "dcr_survivors": 3.060549,
+        "stats": {"live_bytes": 21794959, "dead_bytes": 0, "chain_depth_hist": {"0": 1004, "1":
+            310, "2": 306, "3": 258, "4": 229, "5": 170, "6": 115, "7": 49, "8": 29, "9": 18,
+            "10": 13, "11": 8, "12": 8, "13": 3, "14": 3, "15": 1, "16": 2}},
+        "reingest": [2370, 2109, 0, 261, 4184670],
+        "scrub": [2787, 2787, 25972060, 3],
+        "digests": 2787,
+        "scrub_reopened": [2787, 2787, 25972060, 3],
+        "seeds_admitted": 2787,
+        "seeded_ingest": [2402, 2402, 0, 0, 0],
+    },
+    "sql_dump/objectstore": {
+        "ingest": [[3526, 0, 3517, 9, 28981780], [3598, 2537, 1061, 0, 1471110], [3668, 2563,
+            1105, 0, 1449059], [3741, 2628, 1113, 0, 1587824]],
+        "dcr_before": 4.129564,
+        "storage_before": 33973838,
+        "deletes": [{"handle": 0, "freed": 8623577, "auto_compacted": False}, {"handle": 1,
+            "freed": 6638705, "auto_compacted": True}],
+        "collect": {"live_chunks": 4781, "pinned_chunks": 0, "dead_chunks": 0, "live_bytes":
+            33276660, "pinned_bytes": 0, "dead_bytes": 0, "chain_depth_hist": {"0": 63, "1":
+            318, "2": 757, "3": 1073, "4": 1063, "5": 805, "6": 448, "7": 192, "8": 51, "9":
+            11}, "reclaimable_bytes": 0},
+        "compact": {"epoch": 2, "live_chunks": 4781, "swept_chunks": 0, "swept_bytes": 0,
+            "rebased_delta": 0, "rebased_raw": 0, "bytes_before": 33585120, "bytes_after":
+            33585120, "reclaimed_bytes": 0, "skipped": False},
+        "storage_after": 33585120,
+        "reclaimed_bytes": 388748,
+        "dcr_survivors": 2.099682,
+        "stats": {"live_bytes": 33276660, "dead_bytes": 0, "chain_depth_hist": {"0": 63, "1":
+            318, "2": 757, "3": 1073, "4": 1063, "5": 805, "6": 448, "7": 192, "8": 51, "9":
+            11}},
+        "reingest": [3526, 1829, 0, 1697, 17104211],
+        "scrub": [6478, 6478, 50380871, 3],
+        "digests": 6478,
+        "scrub_reopened": [6478, 6478, 50380871, 3],
+        "seeds_admitted": 6478,
+        "seeded_ingest": [3741, 3741, 0, 0, 0],
+    },
+}
+# The compaction crashpoint the crash drill fires on each backend.
+CRASH_POINTS = {"file": "file.compact.recipes_renamed",
+                "objectstore": "objstore.compact.manifest_flipped"}
+
+
+def lifecycle_dict(backend: str, policy: str, policy_args: dict, root: str) -> dict:
+    return {"detector": "card", "detector_args": LIFECYCLE_CARD,
+            "chunker_args": {"avg_size": 8192}, "backend": backend,
+            "backend_args": {"path": root}, "policy": policy, "policy_args": policy_args,
+            **({"verify_reads": True} if backend == "file" else {})}
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"lifecycle: {msg}")
+
+
+class _Timed:
+    """Wraps one method of an object and sums the seconds spent in it."""
+
+    def __init__(self, obj, name: str) -> None:
+        self.seconds = 0.0
+        real = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        setattr(obj, name, timed)
+
+
+def lifecycle_steps(build, d: dict, versions: list[bytes], mark=lambda label: None
+                    ) -> tuple[dict, dict]:
+    """Phase 4d's steps on one store. ``build(d)`` makes a store from a
+    config dict: the port's on the card here, the JAX package's in
+    scripts/lifecycle_dcr.py, which calls this very function. Fit on
+    version 0 and ingest every version; delete versions 0 and 1 (each
+    deleted handle must raise KeyError); collect, compact; re-ingest
+    version 0 (its chunks swept, its digests dropped, the detector index
+    still holding their rows); restore every live stream SHA-identically;
+    scrub clean with every record verified; take the digest seeds and
+    close; reopen, scrub clean again, restore again; seed the digests,
+    fit, and ingest version 3 again, which must store no new chunk.
+    ``mark(label)`` is called around the re-ingest (the card run counts
+    its launches there). Returns (pinned, measured): the numbers the JAX
+    package must share, and the timings plus a plain recount of the live
+    chunks' chain depths, walked on the backend's records."""
+    sha = hashlib.sha256
+    pinned: dict = {}
+    measured: dict = {}
+
+    def counts(r):
+        return [r.chunks, r.dup_chunks, r.delta_chunks, r.raw_chunks, r.bytes_stored]
+
+    def restore_live(store, handles, what):
+        t0 = time.perf_counter()
+        out = 0
+        for h in handles:
+            want = versions[0] if h == len(versions) else versions[h]
+            got = store.restore(h)
+            _require(sha(got).digest() == sha(want).digest(),
+                     f"{what}: stream {h} did not restore byte-identically")
+            out += len(got)
+        return out / 1e6 / (time.perf_counter() - t0)
+
+    def scrub(store, what):
+        t0 = time.perf_counter()
+        rep = store.scrub()
+        seconds = time.perf_counter() - t0
+        records = len(store.backend.chunk_ids())
+        _require(rep.clean and rep.verified == records == rep.chunks,
+                 f"{what}: scrub not clean or not fully verified: {rep}")
+        return [rep.chunks, rep.verified, rep.bytes_checked, rep.streams], seconds
+
+    store = build(d)
+    rewrite = _Timed(store.backend, "rewrite_live")
+    store.fit(versions[:1])
+    t0 = time.perf_counter()
+    for v in versions:
+        store.ingest(v)
+    measured["ingest_s"] = time.perf_counter() - t0
+    pinned["ingest"] = [counts(r) for r in store.reports]
+    pinned["dcr_before"] = round(store.stats.dcr, 6)
+    pinned["storage_before"] = store.backend.storage_bytes()
+
+    deletes, measured["delete_s"] = [], []
+    for h in LIFECYCLE_DELETED:
+        epoch = store.backend.epoch
+        t0 = time.perf_counter()
+        freed = store.delete(h)
+        measured["delete_s"].append(time.perf_counter() - t0)
+        deletes.append({"handle": h, "freed": freed,
+                        "auto_compacted": store.backend.epoch != epoch})
+        try:
+            store.restore(h)
+        except KeyError:
+            pass
+        else:
+            _require(False, f"deleted handle {h} still restores")
+    pinned["deletes"] = deletes
+    t0 = time.perf_counter()
+    report = store.collect()
+    measured["collect_s"] = time.perf_counter() - t0
+    pinned["collect"] = {**dataclasses.asdict(report),
+                         "reclaimable_bytes": report.reclaimable_bytes}
+    measured["depth_hist_recount"] = depth_recount(store.backend)
+    auto_rewrite_s = rewrite.seconds
+    t0 = time.perf_counter()
+    run = store.compact()
+    compact_s = time.perf_counter() - t0
+    measured["compact_s"] = {"total": compact_s,
+                             "rewrite": rewrite.seconds - auto_rewrite_s,
+                             "sizing_and_rebind": compact_s - rewrite.seconds + auto_rewrite_s,
+                             "in_deletes": auto_rewrite_s}
+    pinned["compact"] = {k: v for k, v in dataclasses.asdict(run).items() if k != "seconds"}
+    storage_after = store.backend.storage_bytes()
+    live = [h for h in range(len(versions)) if h not in LIFECYCLE_DELETED]
+    pinned["storage_after"] = storage_after
+    pinned["reclaimed_bytes"] = store.stats.reclaimed_bytes
+    pinned["dcr_survivors"] = round(sum(len(versions[h]) for h in live) / storage_after, 6)
+    pinned["stats"] = {"live_bytes": store.stats.live_bytes,
+                       "dead_bytes": store.stats.dead_bytes,
+                       "chain_depth_hist": store.stats.chain_depth_hist}
+
+    mark("reingest")
+    again = store.open_stream()
+    again.write(versions[0])
+    again = again.commit()
+    mark("reingest done")
+    pinned["reingest"] = counts(again)
+    live.append(again.handle)
+    measured["restore_mb_per_s"] = restore_live(store, live, "after compaction")
+    pinned["scrub"], measured["scrub_s"] = scrub(store, "after compaction")
+    seeds = store.digest_seeds()
+    pinned["digests"] = len(seeds)
+    store.close()
+
+    store = build(d)
+    pinned["scrub_reopened"], measured["scrub_reopened_s"] = scrub(store, "reopened")
+    measured["restore_reopened_mb_per_s"] = restore_live(store, live, "reopened")
+    pinned["seeds_admitted"] = store.seed_digests(seeds)
+    store.fit(versions[:1])
+    before = set(store.backend.chunk_ids())
+    seeded = store.open_stream()
+    seeded.write(versions[3])
+    seeded = seeded.commit()
+    _require(set(store.backend.chunk_ids()) == before and seeded.dup_chunks == seeded.chunks,
+             f"the seeded ingest stored new chunks: {counts(seeded)}")
+    pinned["seeded_ingest"] = counts(seeded)
+    store.close()
+    return pinned, measured
+
+
+def depth_recount(backend) -> dict[int, int]:
+    """{delta-chain depth: live chunks}, by walking ``base_of`` from every
+    chunk a live recipe names (independent of the refcount table)."""
+    live = {c for h in backend.live_handles() for c in backend.recipe(h)}
+    hist: dict[int, int] = {}
+    for cid in live:
+        depth, cur = 0, backend.base_of(cid)
+        while cur >= 0:
+            depth, cur = depth + 1, backend.base_of(cur)
+        hist[depth] = hist.get(depth, 0) + 1
+    return hist
+
+
+def check_lifecycle(what: str, pinned: dict, recount: dict, want: dict) -> dict:
+    """Every pinned number must equal the JAX package's. The live chain-depth
+    histogram (CollectReport and StoreStats) must equal a plain recount on
+    the card's own records and hold the reference's number of live
+    chunks; its split by depth follows the ingest's verdicts, which on
+    the card may take the other side of a near-tie (ROADMAP Queue 3), so
+    it is reported against the reference's, by depth. Returns that
+    difference (empty where it is the reference's)."""
+    got = json.loads(json.dumps(pinned))
+    want = json.loads(json.dumps(want))
+    hists = {k: (got[k].pop("chain_depth_hist"), want[k].pop("chain_depth_hist"))
+             for k in ("collect", "stats")}
+    if got != want:
+        diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                if got.get(k) != want.get(k)}
+        fail(f"{what}: not the reference's numbers: {diff}")
+    recount = json.loads(json.dumps(recount))
+    if hists["collect"][0] != recount:
+        fail(f"{what}: the depth histogram {hists['collect'][0]} is not the recount {recount}")
+    for k, (g, w) in hists.items():
+        if sum(g.values()) != sum(w.values()):
+            fail(f"{what}: {k} depth histogram counts {sum(g.values())} live chunks, "
+                 f"the reference's {sum(w.values())}")
+    g, w = hists["collect"]
+    return {d: g.get(d, 0) - w.get(d, 0) for d in sorted(set(g) | set(w), key=int)
+            if g.get(d, 0) != w.get(d, 0)}
+
+
+def lifecycle_phase(dev, main_versions: dict[str, list[bytes]]) -> dict[str, int]:
+    """Phase 4d on each store of LIFECYCLE_STORES, then the crash drill;
+    launch counts are reset before each store and read after it."""
+    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0}
+    for name, backend, policy, policy_args in LIFECYCLE_STORES:
+        what = f"lifecycle {name} {backend}"
+        versions = main_versions[name]
+        root = tempfile.mkdtemp(prefix=f"chip_smoke_gc_{backend}_")
+        marks: dict[str, dict] = {}
+
+        def mark(label: str) -> None:
+            torch.cuda.synchronize(dev)
+            marks[label] = dict(ops.LAUNCHES)
+
+        try:
+            t_phase = time.perf_counter()
+            integrity.reset_crc32c_stats()
+            ops.reset_launches()
+            pinned, measured = lifecycle_steps(
+                lambda d: config.build_store(config.DedupConfig.from_dict(d), device=dev),
+                lifecycle_dict(backend, policy, policy_args, root), versions, mark)
+            torch.cuda.synchronize(dev)
+            total_lc = card_launches(what)
+            reingest_lc = card_launches(
+                f"{what} post-compaction re-ingest",
+                counts={k: marks["reingest done"][k] - marks["reingest"][k]
+                        for k in marks["reingest"]})
+            hist_diff = check_lifecycle(what, pinned, measured.pop("depth_hist_recount"),
+                                        LIFECYCLE_REFERENCE[f"{name}/{backend}"])
+            for k in launches:
+                launches[k] += total_lc[k]
+            c, run = pinned["collect"], pinned["compact"]
+            emit("lifecycle", workload=name, backend=backend, policy=policy,
+                 policy_args=policy_args, base_mib=BASE / 2**20, versions=len(versions),
+                 deleted=list(LIFECYCLE_DELETED), dcr_before=pinned["dcr_before"],
+                 dcr_survivors_after=pinned["dcr_survivors"],
+                 reclaimable_bytes=c["reclaimable_bytes"],
+                 reclaimed_bytes=pinned["reclaimed_bytes"],
+                 rebase={"delta": run["rebased_delta"], "raw": run["rebased_raw"]},
+                 deletes=pinned["deletes"], collect=c, compact=run,
+                 storage_bytes={"before": pinned["storage_before"],
+                                "after": pinned["storage_after"]},
+                 reingest=pinned["reingest"], seeded_ingest=pinned["seeded_ingest"],
+                 seeds_admitted=pinned["seeds_admitted"], scrub=pinned["scrub"],
+                 pinned="the JAX package's", depth_hist_vs_reference=hist_diff,
+                 restored="sha256-identical",
+                 seconds=measured, crc32c=dict(route=integrity.crc32c_route(),
+                                               **integrity.CRC32C_STATS),
+                 launches={"store": total_lc, "reingest": reingest_lc},
+                 phase_s=time.perf_counter() - t_phase)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    crash_drill(dev)
+    return launches
+
+
+def crash_drill(dev) -> None:
+    """The crash-matrix script (two ingests of about 120 KB, a delete,
+    collect, compact, a third ingest, flush) on the card, crashed at one
+    compaction crashpoint a backend; the directory is copied as a kill -9
+    left it and reopened, and the post-crash contract must hold."""
+    registered = faults.registered_crashpoints()
+    rng = np.random.default_rng(1)
+    d1 = rng.integers(0, 256, 120_000, np.uint8).tobytes()
+    d2 = d1[:60_000] + np.random.default_rng(2).integers(0, 256, 20_000, np.uint8).tobytes() \
+        + d1[60_000:]
+    d3 = np.random.default_rng(3).integers(0, 256, 90_000, np.uint8).tobytes()
+    script = [("ingest", "a", d1), ("ingest", "b", d2), ("delete", "a"), ("collect",),
+              ("compact",), ("ingest", "c", d3), ("flush",)]
+    for backend, point in CRASH_POINTS.items():
+        if point not in registered:
+            fail(f"crash drill: {point} is not a registered crashpoint")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+        try:
+            t0 = time.perf_counter()
+            root, snap = os.path.join(tmp, "store"), os.path.join(tmp, "snap")
+            inj = faults.FaultInjector()
+            d = lifecycle_dict(backend, "never", {}, root)
+            d["backend_args"]["faults"] = inj
+            store = config.build_store(config.DedupConfig.from_dict(d), device=dev)
+            store.fit([d1])
+            inj.arm(point, 1)
+            run = faults.run_crash_script(store, script)
+            faults.snapshot_dir(root, snap)
+            faults.abandon(store)
+            if run.crashed_at != point:
+                fail(f"crash drill: the script crashed at {run.crashed_at}, not {point}")
+            reopened = config.build_store(config.DedupConfig.from_dict(
+                lifecycle_dict(backend, "never", {}, snap)), device=dev)
+            errors = faults.check_crash_invariants(reopened, run)
+            reopened.close()
+            if errors:
+                fail(f"crash drill at {point}: {errors}")
+            emit("lifecycle_crash", backend=backend, point=point, crashed_at=run.crashed_at,
+                 committed={k: h for k, (h, _) in run.committed.items()},
+                 deleted=sorted(run.deleted), pending=run.pending and run.pending[:2],
+                 violations=errors, seconds=time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 # --- phases 5 and 6: the card's fit, then card / CPU parity ------------------
@@ -1203,6 +1620,8 @@ def main() -> int:
     for name, versions in main_versions.items():
         for k, v in backends_phase(dev, name, versions).items():
             launches[k] += v
+    for k, v in lifecycle_phase(dev, main_versions).items():
+        launches[k] += v
     small = workloads.make_workload(
         "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))
     parity_phase(*fit_phase(small), small)

@@ -9,11 +9,16 @@
     with store.open_stream() as s:
         s.write(first_version)
     assert store.restore(s.report.handle) == first_version
+    store.delete(s.report.handle)         # retire the stream ...
+    store.collect()
+    store.compact()                       # ... and reclaim its bytes
     store.close()
 
-Not ported yet: the lifecycle (delete / collect / compact and the
-reclamation policies, the refcount table), ``RWLock``, the multi-tenant
-server, observability, scrub and the S3 client.
+``scrub`` and the crash-script harness (``run_crash_script``,
+``snapshot_dir``, ``check_crash_invariants``, ``abandon``, ``CrashRun``)
+stay in ``api.integrity`` and ``api.faults``, where the reference keeps
+them too. Not ported yet: the multi-tenant server, observability and the
+S3 client.
 """
 from repro_torch.api.types import (  # noqa: F401
     DetectBatch,
@@ -35,6 +40,8 @@ from repro_torch.api.restore import (  # noqa: F401
 from repro_torch.api.concurrency import (  # noqa: F401
     DeadlineExceededError,
     IoTelemetry,
+    LockTimeout,
+    RWLock,
     check_deadline,
     current_deadline,
     deadline_scope,
@@ -49,6 +56,7 @@ from repro_torch.api.detect import (  # noqa: F401
 from repro_torch.api.integrity import (  # noqa: F401
     CorruptChunkError,
     CorruptJournalError,
+    ScrubReport,
     crc32c,
 )
 from repro_torch.api.faults import (  # noqa: F401
@@ -70,7 +78,16 @@ from repro_torch.api.objectstore import (  # noqa: F401
     LocalObjectStore,
     ObjectStoreBackend,
 )
+from repro_torch.api.refcount import RefcountTable  # noqa: F401
 from repro_torch.api.store import DedupStore, StreamSession, chunk_with  # noqa: F401
+from repro_torch.api.lifecycle import (  # noqa: F401
+    CollectReport,
+    CompactionRun,
+    EagerPolicy,
+    NeverPolicy,
+    ReclamationPolicy,
+    ThresholdPolicy,
+)
 from repro_torch.api.registry import (  # noqa: F401
     available_backends,
     available_chunkers,
@@ -93,5 +110,6 @@ from repro_torch.api.config import (  # noqa: F401
     build_backend,
     build_chunker,
     build_detector,
+    build_policy,
     build_store,
 )

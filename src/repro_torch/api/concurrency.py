@@ -1,7 +1,12 @@
-"""Deadlines and per-thread I/O telemetry for the read path (port of
-``repro.api.concurrency``; ``RWLock`` and ``LockTimeout`` come with store
-concurrency).
+"""Concurrency primitives for the store and its read path (port of
+``repro.api.concurrency``).
 
+    RWLock          writer-preferring shared/exclusive lock. Restores and
+                    commits take the shared side, lifecycle mutations
+                    (delete / collect / compact / scrub / close: they swap
+                    the chunk index and reopen file handles) the exclusive
+                    side. Both acquire sides take an optional ``timeout``
+                    and raise ``LockTimeout`` when it elapses.
     deadline_scope  thread-local end-to-end request deadline. Lock waits
                     and the restore / commit hot loops consult it via
                     ``remaining_time()`` / ``check_deadline()`` and fail
@@ -16,6 +21,20 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
+
+
+class LockTimeout(TimeoutError):
+    """An RWLock acquire gave up after its ``timeout`` elapsed. The lock
+    state is untouched (nothing to release); the wait is still reported
+    through the lock's observer so a wedged writer shows up in the
+    ``repro_lock_wait_seconds`` histogram instead of starving readers
+    silently."""
+
+    def __init__(self, side: str, timeout: float) -> None:
+        super().__init__(
+            f"RWLock {side} acquisition timed out after {timeout:.3f}s")
+        self.side = side
+        self.timeout = timeout
 
 
 class DeadlineExceededError(TimeoutError):
@@ -88,6 +107,117 @@ def check_deadline(op: str = "request") -> None:
     if at is not None and time.monotonic() >= at:
         raise DeadlineExceededError(op, getattr(_DEADLINE_TL, "budget",
                                                 None))
+
+
+class RWLock:
+    """Shared/exclusive lock, writer-preferring, not reentrant.
+
+    ``read()`` / ``write()`` are context managers. A thread must not
+    nest acquisitions (a reader re-entering while a writer waits would
+    deadlock under writer preference); callers keep critical sections
+    leaf-shaped instead.
+
+    ``observer`` (optional) is called as ``observer(side, seconds)``
+    after every successful acquire with ``side`` in ``("read",
+    "write")`` and the time the acquire took — the lock-contention
+    signal (DESIGN.md §12.2 feeds it into the
+    ``repro_lock_wait_seconds`` histogram). It runs outside the
+    internal condition and must not acquire this lock. Without an
+    observer the acquire paths don't even read the clock.
+    """
+
+    def __init__(self, observer=None) -> None:
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer_active = False
+        self._writers_waiting = 0
+        self._observer = observer
+
+    # explicit acquire/release pairs for hot paths (a generator-based
+    # contextmanager costs ~4µs per cycle, which ranged reads notice);
+    # the read()/write() context managers below wrap these for callers
+    # off the hot path
+
+    def acquire_read(self, timeout: float | None = None) -> None:
+        obs = self._observer
+        t0 = (time.perf_counter()
+              if obs is not None or timeout is not None else 0.0)
+        try:
+            with self._cond:
+                while self._writer_active or self._writers_waiting:
+                    remaining = None
+                    if timeout is not None:
+                        remaining = timeout - (time.perf_counter() - t0)
+                        if remaining <= 0:
+                            raise LockTimeout("read", timeout)
+                    self._cond.wait(remaining)
+                self._readers += 1
+        except LockTimeout:
+            # failed waits still feed the contention histogram — a wedged
+            # writer must be visible, not just survivable
+            if obs is not None:
+                obs("read", time.perf_counter() - t0)
+            raise
+        if obs is not None:
+            obs("read", time.perf_counter() - t0)
+
+    def release_read(self) -> None:
+        with self._cond:
+            self._readers -= 1
+            if not self._readers and self._writers_waiting:
+                self._cond.notify_all()
+
+    def acquire_write(self, timeout: float | None = None) -> None:
+        obs = self._observer
+        t0 = (time.perf_counter()
+              if obs is not None or timeout is not None else 0.0)
+        try:
+            with self._cond:
+                acquired = False
+                self._writers_waiting += 1
+                try:
+                    while self._writer_active or self._readers:
+                        remaining = None
+                        if timeout is not None:
+                            remaining = timeout - (time.perf_counter() - t0)
+                            if remaining <= 0:
+                                raise LockTimeout("write", timeout)
+                        self._cond.wait(remaining)
+                    acquired = True
+                finally:
+                    self._writers_waiting -= 1
+                    # a timed-out writer may be the only thing holding
+                    # readers back (writer preference): wake them
+                    if not acquired and not self._writers_waiting:
+                        self._cond.notify_all()
+                self._writer_active = True
+        except LockTimeout:
+            if obs is not None:
+                obs("write", time.perf_counter() - t0)
+            raise
+        if obs is not None:
+            obs("write", time.perf_counter() - t0)
+
+    def release_write(self) -> None:
+        with self._cond:
+            self._writer_active = False
+            self._cond.notify_all()
+
+    @contextmanager
+    def read(self, timeout: float | None = None):
+        self.acquire_read(timeout)
+        try:
+            yield
+        finally:
+            self.release_read()
+
+    @contextmanager
+    def write(self, timeout: float | None = None):
+        self.acquire_write(timeout)
+        try:
+            yield
+        finally:
+            self.release_write()
 
 
 #: Field order of an I/O counter snapshot — shared by the backends that

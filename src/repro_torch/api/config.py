@@ -162,11 +162,6 @@ def _check_ported(cfg: DedupConfig) -> None:
         value = getattr(cfg, name)
         if value is not None and value != {}:
             raise NotImplementedError(f"{name} needs {missing}, not ported yet")
-    if cfg.policy != "never" or cfg.policy_args:
-        raise NotImplementedError(
-            f"policy {cfg.policy!r} with {cfg.policy_args!r}: reclamation "
-            "policies need the lifecycle (ROADMAP Queue 1 item 4), not ported "
-            "yet; the port never compacts (policy 'never')")
 
 
 def build_detector(cfg: DedupConfig, device: str | torch.device | None = None) -> Any:
@@ -198,9 +193,14 @@ def build_backend(cfg: DedupConfig) -> Any:
     return factory(**args)
 
 
+def build_policy(cfg: DedupConfig) -> Any:
+    return registry.get_policy(cfg.policy)(**cfg.policy_args)
+
+
 def build_store(cfg: DedupConfig, device: str | torch.device | None = None) -> DedupStore:
     """Resolve every component through the port's registry and assemble
     the store on ``device`` (the CUDA device unless ``"cpu"``)."""
     _check_ported(cfg)
     return DedupStore(build_detector(cfg, device), build_chunker(cfg),
-                      backend=build_backend(cfg), device=device)
+                      backend=build_backend(cfg), policy=build_policy(cfg),
+                      device=device)

@@ -7,7 +7,7 @@ chunk payloads (raw bytes or a delta patch + base reference), and stream
 recipes (the ordered chunk-id list that reconstructs a stream). All store
 *policy* — exact dedup, resemblance detection, delta-vs-raw decision,
 accounting, and when to reclaim — stays above the backend in
-``repro_torch.api.store`` (and the lifecycle, once ported); backends only
+``repro_torch.api.store`` and ``api/lifecycle.py``; backends only
 move bytes.
 
     InMemoryBackend   dict-based records; reads walk each delta chain

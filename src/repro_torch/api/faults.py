@@ -1,5 +1,4 @@
-"""Fault injection for durability testing (port of ``repro.api.faults``,
-without the crash-script harness, whose scripts need the lifecycle).
+"""Fault injection for durability testing (port of ``repro.api.faults``).
 
     TransientError      retryable object-store failure (HTTP 429/5xx in
                         spirit); raised by fault hooks, absorbed by
@@ -16,6 +15,11 @@ without the crash-script harness, whose scripts need the lifecycle).
     flip_bit / flip_byte / truncate_tail
                         on-disk corruption injectors (bit rot, torn
                         writes, power-loss truncation)
+    run_crash_script / snapshot_dir / check_crash_invariants / abandon
+                        the crash-matrix harness: drive an op script
+                        until an armed crashpoint fires, copy the
+                        directory as a ``kill -9`` left it, reopen and
+                        check the post-crash contract
 
 Crashpoints are registered at import time by the modules that place them
 (``containers.py``, ``objectstore.py``); ``registered_crashpoints()`` is
@@ -24,12 +28,14 @@ depend on it without cycles.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import random
+import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 
 class TransientError(Exception):
@@ -273,3 +279,146 @@ def truncate_tail(path: str | Path, nbytes: int) -> int:
     new = max(0, size - max(0, int(nbytes)))
     os.truncate(path, new)
     return new
+
+
+# --- crash-matrix harness -----------------------------------------------------
+
+@dataclasses.dataclass
+class CrashRun:
+    """What one scripted run did before (maybe) crashing.
+
+    ``committed`` maps stream name -> (handle, bytes) for every ingest
+    whose commit *returned*; ``deleted`` holds names whose delete
+    returned; ``pending`` is the op that was in flight when the crash
+    fired (its effects are allowed to be absent — or, for a delete,
+    either applied or not); ``crashed_at`` is the crashpoint name, or
+    None when the script ran to completion."""
+
+    committed: dict[str, tuple[int, bytes]]
+    deleted: set[str]
+    pending: tuple | None
+    crashed_at: str | None
+
+
+def run_crash_script(store: Any, ops: Sequence[tuple]) -> CrashRun:
+    """Drive a portable op script against ``store`` until an armed
+    crashpoint fires (or the script completes). Ops:
+
+        ("ingest", name, data)   open_stream/write/commit
+        ("delete", name)         delete a previously committed stream
+        ("compact",)             store.compact()
+        ("collect",)             store.collect()
+        ("flush",)               backend flush
+
+    The shadow state records only *completed* ops, so the returned
+    ``CrashRun`` is exactly what a client that saw its calls return
+    would be entitled to find after the crash."""
+    committed: dict[str, tuple[int, bytes]] = {}
+    deleted: set[str] = set()
+    pending: tuple | None = None
+    crashed_at: str | None = None
+    try:
+        for op in ops:
+            pending = op
+            kind = op[0]
+            if kind == "ingest":
+                _, name, data = op
+                with store.open_stream() as s:
+                    s.write(data)
+                committed[name] = (s.report.handle, bytes(data))
+            elif kind == "delete":
+                store.delete(committed[op[1]][0])
+                deleted.add(op[1])
+            elif kind == "compact":
+                store.compact()
+            elif kind == "collect":
+                store.collect()
+            elif kind == "flush":
+                store.backend.flush()
+            else:
+                raise ValueError(f"unknown crash-script op {op!r}")
+            pending = None
+    except SimulatedCrash as crash:
+        crashed_at = crash.point
+    return CrashRun(committed=committed, deleted=deleted,
+                    pending=pending, crashed_at=crashed_at)
+
+
+def snapshot_dir(src: str | Path, dst: str | Path) -> Path:
+    """Copy the store directory as the on-disk state a ``kill -9`` left:
+    bytes the process wrote through to the OS are present, bytes still
+    sitting in user-space buffers of the abandoned (never closed) store
+    object are not — which is exactly the distinction the crash model
+    needs. Call it *before* dropping the crashed store, so no interpreter
+    finalizer can flush more state into the copy."""
+    dst = Path(dst)
+    shutil.copytree(src, dst)
+    return dst
+
+
+def check_crash_invariants(store: Any, run: CrashRun) -> list[str]:
+    """The §13 post-crash contract, checked on a *reopened* store:
+
+      1. ``scrub()`` reports the store clean (recovery already retired
+         anything the crash tore);
+      2. every stream whose commit returned — and that was not deleted —
+         restores byte-identically;
+      3. every stream whose delete returned stays deleted;
+      4. the op in flight at the crash may have happened or not, but a
+         half-state is never visible: an in-flight ingest's stream simply
+         doesn't exist (its commit never returned a handle), an in-flight
+         delete's stream is either intact or gone.
+
+    Returns a list of violation descriptions — empty means the store
+    honoured the contract."""
+    errors: list[str] = []
+    report = store.scrub()
+    if not report.clean:
+        errors.append(f"scrub not clean after reopen: "
+                      f"corrupt={list(report.corrupt)} "
+                      f"missing={list(report.missing)} "
+                      f"streams_lost={list(report.streams_lost)} "
+                      f"structural={list(report.structural_errors)}")
+    pending_delete = (run.pending[1]
+                      if run.pending and run.pending[0] == "delete"
+                      else None)
+    for name, (handle, data) in run.committed.items():
+        if name in run.deleted:
+            try:
+                store.restore(handle)
+            except (KeyError, IndexError):
+                continue
+            errors.append(f"deleted stream {name!r} (handle {handle}) "
+                          f"resurrected")
+        elif name == pending_delete:
+            try:
+                got = store.restore(handle)
+            except (KeyError, IndexError):
+                continue        # the in-flight delete landed: fine
+            if got != data:
+                errors.append(f"stream {name!r} (handle {handle}) "
+                              f"survived its in-flight delete but "
+                              f"restored wrong bytes")
+        else:
+            try:
+                got = store.restore(handle)
+            except Exception as e:      # noqa: BLE001 - report, don't mask
+                errors.append(f"committed stream {name!r} (handle "
+                              f"{handle}) unrestorable: {e!r}")
+                continue
+            if got != data:
+                errors.append(f"committed stream {name!r} (handle "
+                              f"{handle}) restored wrong bytes "
+                              f"({len(got)} vs {len(data)})")
+    return errors
+
+
+def abandon(store: Any) -> None:
+    """Best-effort resource release of a crashed store *after* the
+    directory snapshot was taken. Close may legitimately fail (the crash
+    fired mid-mutation); anything it still manages to flush goes to the
+    original directory, never the snapshot."""
+    try:
+        store.close()
+    except BaseException:       # noqa: BLE001 - crashed object, anything goes
+        pass

@@ -1,7 +1,7 @@
 """Object-store container backend and its fault-injecting local fake
 (port of ``repro.api.objectstore``; ``S3ObjectClient``, the ``"s3"``
 backend and the ``cp``/``ls``/``stat``/``verify`` CLI are not ported:
-boto3 is not installed, and the CLI needs the digest-table seam).
+boto3 is not installed, and the CLI comes in a later slice).
 
   ObjectStoreBackend  a full ``ContainerBackend`` that keeps the chunk
                       log as immutable *container objects* and serves

@@ -10,8 +10,7 @@ anywhere in the port registers into the reference's registry.
     backends        "memory", "file", "objectstore" ("s3" needs boto3 and
                     is not ported: its lookup raises a KeyError that says
                     so)
-    policies        none yet (ROADMAP Queue 1 item 4; the config path
-                    takes the default "never" only)
+    policies        "eager", "threshold", "never" (api/lifecycle.py)
     cache policies  "lru", "arc" (decode-cache eviction, api/restore.py)
 
 Built-ins register themselves with the decorators at their definition
@@ -51,7 +50,7 @@ def _ensure_builtins() -> None:
     global _builtins_loaded
     if _builtins_loaded:
         return
-    from repro_torch.api import containers, objectstore, restore  # noqa: F401
+    from repro_torch.api import containers, lifecycle, objectstore, restore  # noqa: F401
     from repro_torch.core import chunking, pipeline, similarity  # noqa: F401
     _CHUNKERS.setdefault("fastcdc", chunking.ChunkerConfig)
     # only after every import succeeded: a failure above must surface

@@ -1,7 +1,6 @@
 """Session-oriented dedup + delta-compression store (port of
-``repro.api.store``: ingest, the restore read path and close; without the
-lifecycle lock, observability, reclamation, scrub or the digest-table
-seam).
+``repro.api.store``: ingest, the restore read path, the lifecycle lock,
+reclamation, scrub and the digest-table seam; without observability).
 
     session = store.open_stream()
     session.write(part1); session.write(part2)   # stage bytes
@@ -21,6 +20,17 @@ counts the backend's ``record_overhead``.
 backend's planned ``get_many`` and record a ``RestoreReport``
 (``store.last_restore``). ``DedupStore`` runs on the CUDA device unless
 given ``device="cpu"``; its backend is host code and takes no device.
+
+Space reclamation is delegated to ``api/lifecycle.py``: ``delete(handle)``
+retires a stream and decrefs its chunks (chunks another stream's patch
+depends on stay pinned), ``collect()`` is the mark-sweep accounting pass,
+``compact()`` rewrites the container without dead records, rebasing
+surviving patches whose base was evicted; ``scrub()`` is the fsck walk of
+``api/integrity.py``. The ``RefcountTable`` is rebuilt from the backend
+on open, so a reopened store can delete and compact streams it did not
+ingest. Restores and commits take the shared side of the lifecycle lock
+(commits are also serialised among themselves), the lifecycle operations
+and ``close`` the exclusive side.
 """
 from __future__ import annotations
 
@@ -33,9 +43,12 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from repro_torch.api import containers
-from repro_torch.api.concurrency import accumulate, check_deadline, zero_deltas
+from repro_torch.api import containers, lifecycle
+from repro_torch.api.concurrency import (DeadlineExceededError, LockTimeout, RWLock,
+                                         accumulate, check_deadline, remaining_time,
+                                         zero_deltas)
 from repro_torch.api.detect import is_staged
+from repro_torch.api.refcount import RefcountTable
 from repro_torch.api.restore import RecipeLayout
 from repro_torch.api.types import DetectBatch, IngestReport, RestoreReport, StoreStats
 from repro_torch.core import chunking, delta
@@ -107,6 +120,7 @@ class DedupStore:
     def __init__(self, detector: Any,
                  chunker_cfg: chunking.ChunkerConfig | None = None,
                  backend: containers.ContainerBackend | None = None,
+                 policy: Any | None = None,
                  device: str | torch.device | None = None):
         self.device = ops.resolve_device(device)
         det_device = getattr(detector, "device", None)
@@ -115,6 +129,7 @@ class DedupStore:
         self.detector = detector
         self.cfg = chunker_cfg or chunking.ChunkerConfig()
         self.backend = backend if backend is not None else containers.InMemoryBackend()
+        self.policy = policy if policy is not None else lifecycle.NeverPolicy()
         self.stats = StoreStats()
         self.reports: list[IngestReport] = []
         self._by_digest: dict[bytes, int] = {}
@@ -124,18 +139,31 @@ class DedupStore:
         # probed once: a TypeError raised inside a two-argument add_recipe
         # must propagate, not trigger a second (duplicating) append
         self._recipe_lengths_ok = _accepts_lengths(self.backend.add_recipe)
-        # ranged-restore prefix sums per handle, built lazily
+        self._refs = RefcountTable.rebuild(self.backend)
+        # ranged-restore prefix sums per handle, built lazily; dropped on
+        # delete, kept across compaction (lengths are invariant under
+        # rebasing)
         self._layouts: dict[int, RecipeLayout] = {}
         self.last_restore: RestoreReport | None = None
-        # restore_iter's next-batch fetches run on the prefetch pool,
-        # created on first use; _closed (flipped under the stats lock)
-        # stops its creation after close()
+        # restores and commits take the shared side of the lifecycle lock,
+        # delete / collect / compact / scrub / close the exclusive side;
+        # commits are also serialised against each other. restore_iter's
+        # next-batch fetches run on the prefetch pool, created on first use.
+        self._lifecycle_lock = RWLock()
+        self._commit_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self._prefetch: ThreadPoolExecutor | None = None
+        # two close flags: _closed flips first (under the stats lock) and
+        # stops prefetch-pool creation; _backend_closed flips under the
+        # exclusive lock right before the backend closes, so fetches in
+        # flight when close() started (the drained prefetch tasks too)
+        # still finish, and any fetch arriving after gets RuntimeError
         self._closed = False
+        self._backend_closed = False
         # per-thread backend telemetry (None -> lifetime-attribute fallback)
         self._io_counters = getattr(self.backend, "io_counters", None)
         self._fold_io = getattr(self.backend, "fold_io_counters", None)
+        self._refresh_lifecycle_stats()
 
     def _clock(self) -> float:
         # stage timings end on the device: wait for queued kernels first
@@ -159,8 +187,29 @@ class DedupStore:
         return self.stats
 
     def _commit_stream(self, stream: bytes) -> IngestReport:
+        # one commit at a time (id assignment, digest table, one group
+        # commit in flight); commits run beside restores but are excluded
+        # from lifecycle mutations. Under a deadline scope both lock
+        # waits are bounded: shedding before any chunking is the cheap place.
         check_deadline("commit")
-        self._check_open()
+        t = remaining_time()
+        if t is None:
+            self._commit_lock.acquire()
+        elif not self._commit_lock.acquire(timeout=max(0.0, t)):
+            raise DeadlineExceededError("commit (commit-lock wait)")
+        try:
+            self._acquire_read_deadline("commit")
+            try:
+                # fail before the chunk / detect passes run, not on the
+                # closed backend after the work is done
+                self._check_open()
+                return self._commit_stream_locked(stream)
+            finally:
+                self._lifecycle_lock.release_read()
+        finally:
+            self._commit_lock.release()
+
+    def _commit_stream_locked(self, stream: bytes) -> IngestReport:
         # pass 0: chunk
         t0 = self._clock()
         chunks, stream_hashes = chunk_with(self.cfg, stream, self.device)
@@ -249,8 +298,8 @@ class DedupStore:
             records.append(entry)
             staged_data[cid] = ck.data
 
-        # pass 3b: one batched backend write + recipe + flush; digests are
-        # registered only after the writes succeed
+        # pass 3b: one batched backend write + recipe + flush; refcounts
+        # and digests are registered only after the writes succeed
         t0 = time.perf_counter()
         put_many = getattr(backend, "put_many", None)
         if put_many is not None:
@@ -261,13 +310,16 @@ class DedupStore:
                     backend.put_raw(cid, payload)
                 else:
                     backend.put_delta(cid, base, payload, data=data)
-        for i, (cid, _base, _payload, _data) in zip(np.flatnonzero(is_new), records):
+        for i, (cid, base, payload, _data) in zip(np.flatnonzero(is_new), records):
+            self._refs.track(cid, base, len(payload))
             self._by_digest[digests[i]] = cid
         recipe = [int(c) for c in ids]
         if self._recipe_lengths_ok:     # persist lengths for ranged restores
             handle = backend.add_recipe(recipe, [int(ck.length) for ck in chunks])
         else:
             handle = backend.add_recipe(recipe)
+        for cid in recipe:              # only now do the chunks become live
+            self._refs.incref_recipe(cid)
         backend.flush()
         store_seconds = time.perf_counter() - t0
 
@@ -287,6 +339,7 @@ class DedupStore:
         with self._stats_lock:
             self.reports.append(report)
             self.stats.absorb(report)
+            self._refresh_lifecycle_stats()
         return report
 
     # --- serving path (api/restore.py) ---------------------------------------
@@ -365,6 +418,31 @@ class DedupStore:
         when the backend kept the recipe's lengths)."""
         return self._layout(handle, self.backend.recipe(handle)).total_bytes
 
+    # --- digest-table persistence seam ---------------------------------------
+
+    def digest_seeds(self) -> dict[bytes, int]:
+        """Snapshot of the exact-dedup digest table (content digest ->
+        stored chunk id). The table lives in memory only: a store reopened
+        on an existing backend starts with it empty. Callers that reopen
+        stores persist this snapshot and hand it back via ``seed_digests``."""
+        with self._stats_lock:
+            return dict(self._by_digest)
+
+    def seed_digests(self, mapping: dict[bytes, int]) -> int:
+        """Preload the digest table from a ``digest_seeds`` snapshot.
+        Entries whose chunk id is no longer stored (deleted and compacted
+        away meanwhile) are skipped, so a stale snapshot never aliases
+        fresh content onto missing records. Returns how many were admitted."""
+        admitted = 0
+        with self._commit_lock, self._lifecycle_lock.read():
+            self._check_open()
+            for dig, cid in mapping.items():
+                cid = int(cid)
+                if self.backend.contains(cid):
+                    self._by_digest[bytes(dig)] = cid
+                    admitted += 1
+        return admitted
+
     def _fetch_unique(self, cids: Sequence[int]) -> dict[int, bytes]:
         """Materialise each distinct chunk id once: planned ``get_many``
         when the backend has it, per-chunk ``get`` otherwise."""
@@ -374,14 +452,36 @@ class DedupStore:
             return dict(zip(uniq, get_many(uniq)))
         return {cid: self.backend.get(cid) for cid in uniq}
 
+    def _acquire_read_deadline(self, op: str) -> None:
+        """Shared lifecycle lock, bounded by the caller's deadline scope:
+        an unbounded caller blocks, a request with a budget waits at most
+        what is left of it and fails with ``DeadlineExceededError``."""
+        t = remaining_time()
+        if t is None:
+            self._lifecycle_lock.acquire_read()
+            return
+        try:
+            self._lifecycle_lock.acquire_read(timeout=max(0.0, t))
+        except LockTimeout as e:
+            raise DeadlineExceededError(f"{op} (lifecycle-lock wait)") from e
+
     def _fetch_counted(self, cids: Sequence[int]) -> tuple[dict, list]:
-        """``_fetch_unique`` plus this thread's I/O counter deltas; the
-        snapshot pair runs on the fetching thread, so the deltas are
-        exact per call even when it runs on the prefetch pool."""
+        """``_fetch_unique`` under the shared lifecycle lock plus this
+        thread's I/O counter deltas; the snapshot pair runs on the
+        fetching thread, so the deltas are exact per call even when it
+        runs on the prefetch pool."""
+        lock = self._lifecycle_lock
         check_deadline("restore")
-        self._check_open()
         snap = self._backend_counters()
-        data = self._fetch_unique(cids)
+        self._acquire_read_deadline("restore")
+        try:
+            # a resumed restore_iter can arrive here after close(); the
+            # flag flips under the write lock, so a reader that sees it
+            # False is ordered before the close and fetches safely
+            self._check_open()
+            data = self._fetch_unique(cids)
+        finally:
+            lock.release_read()
         now = self._backend_counters()
         return data, [now[i] - snap[i] for i in range(len(snap))]
 
@@ -422,7 +522,21 @@ class DedupStore:
                     accumulate(acc, d)
                 lengths = [len(data[cid]) for cid in recipe]
             layout = RecipeLayout(lengths)
-            self._layouts[handle] = layout
+            # cache only while the handle is still live, checked under the
+            # shared lock: a delete retires the recipe and pops the layout
+            # as one step under the exclusive lock, so an unguarded insert
+            # could land after the pop and pin the layout for good
+            lock = self._lifecycle_lock
+            self._acquire_read_deadline("restore")
+            try:
+                try:
+                    self.backend.recipe(handle)
+                except (KeyError, IndexError):
+                    pass        # deleted meanwhile: serve, don't cache
+                else:
+                    self._layouts[handle] = layout
+            finally:
+                lock.release_read()
         return layout
 
     def _backend_counters(self) -> tuple:
@@ -448,16 +562,89 @@ class DedupStore:
             self.last_restore = report
             self.stats.absorb_restore(report)
 
+    # --- space reclamation (api/lifecycle.py) --------------------------------
+
     def _check_open(self) -> None:
-        if self._closed:
+        # every surface fails with the same clean error before mutating
+        # anything (a delete reaching the closed backend would retire the
+        # recipe in memory, then die on the closed journal handle)
+        if self._backend_closed:
             raise RuntimeError("store is closed")
 
+    def _acquire_write_deadline(self, op: str) -> None:
+        """Exclusive lifecycle lock, bounded by the caller's deadline
+        scope: the write-side twin of ``_acquire_read_deadline``."""
+        t = remaining_time()
+        if t is None:
+            self._lifecycle_lock.acquire_write()
+            return
+        try:
+            self._lifecycle_lock.acquire_write(timeout=max(0.0, t))
+        except LockTimeout as e:
+            raise DeadlineExceededError(f"{op} (lifecycle-lock wait)") from e
+
+    def delete(self, handle: int) -> int:
+        """Retire a committed stream; returns the logical bytes the delete
+        made reclaimable. May trigger compaction per the store policy.
+        Exclusive: in-flight restores finish first, later ones see the
+        post-delete state (the deleted handle then raises KeyError)."""
+        check_deadline("delete")
+        self._acquire_write_deadline("delete")
+        try:
+            self._check_open()
+            return lifecycle.delete_stream(self, handle)
+        finally:
+            self._lifecycle_lock.release_write()
+
+    def collect(self) -> lifecycle.CollectReport:
+        """Mark-sweep accounting pass (mutates no data)."""
+        self._acquire_write_deadline("collect")
+        try:
+            self._check_open()
+            return lifecycle.collect(self)
+        finally:
+            self._lifecycle_lock.release_write()
+
+    def compact(self) -> lifecycle.CompactionRun:
+        """Rewrite the container without dead records, rebasing survivors.
+        Exclusive: the backend swaps its chunk index and reopens its
+        reader fds, so no restore may be mid-plan while it runs."""
+        self._acquire_write_deadline("compact")
+        try:
+            self._check_open()
+            return lifecycle.compact(self)
+        finally:
+            self._lifecycle_lock.release_write()
+
+    def scrub(self, repair: bool = False):
+        """Fsck walk: verify every stored record against its checksum,
+        check recipe reachability and refcount consistency, and return a
+        ``ScrubReport``; ``repair=True`` quarantines corrupt chunks and
+        their dependents and retires every affected stream. Exclusive,
+        like delete and compact."""
+        from repro_torch.api import integrity
+        self._acquire_write_deadline("scrub")
+        try:
+            self._check_open()
+            return integrity.scrub(self, repair=repair)
+        finally:
+            self._lifecycle_lock.release_write()
+
+    def _refresh_lifecycle_stats(self) -> None:
+        # dead_bytes = all compaction can drop: unreferenced records plus
+        # records pinned only as delta bases (rebasing frees them)
+        self.stats.live_bytes = self._refs.live_bytes
+        self.stats.dead_bytes = self._refs.dead_bytes + self._refs.pinned_bytes
+
     def close(self) -> None:
-        """Idempotent: drain the prefetch pool, then close the backend
-        (its reader fds and pools). Callers finish their restores first
-        (the reference's lifecycle lock, which would wait for them, comes
-        with store concurrency); a commit, restore or partly consumed
-        ``restore_iter`` after close raises RuntimeError."""
+        """Idempotent. Restores arriving after close (a partly consumed
+        ``restore_iter`` resumed, too) raise RuntimeError instead of
+        touching the closed backend."""
+        # the flag flips under the lock that guards prefetch-pool
+        # creation, so no pool is created after it; then drain the pool
+        # BEFORE taking the exclusive lock (its tasks take the shared
+        # side, so the reverse order deadlocks); then close the backend
+        # under exclusion, after in-flight restores finish
         with self._stats_lock:
             if self._closed:
                 return
@@ -465,4 +652,6 @@ class DedupStore:
         if self._prefetch is not None:
             self._prefetch.shutdown(wait=True)
             self._prefetch = None
-        self.backend.close()
+        with self._lifecycle_lock.write():
+            self._backend_closed = True
+            self.backend.close()

@@ -123,8 +123,15 @@ class RestoreReport:
 @dataclasses.dataclass
 class StoreStats:
     """Store-lifetime aggregate: the sum of every committed IngestReport
-    and RestoreReport plus offline model-fit time (the reference's
-    lifecycle fields come with the lifecycle)."""
+    and RestoreReport plus offline model-fit time.
+
+    The lifecycle fields are maintained by reclamation, not by
+    ``absorb``: ``live_bytes`` / ``dead_bytes`` mirror the refcount table
+    after every commit / delete / collect (``dead_bytes`` counts all a
+    compaction can drop: unreferenced records plus records pinned only as
+    delta bases, which rebasing frees); ``reclaimed_bytes`` sums the
+    measured container shrink across compactions; ``chain_depth_hist`` is
+    the live delta-chain depth histogram from the last ``collect()``."""
 
     bytes_in: int = 0
     bytes_stored: int = 0
@@ -140,6 +147,10 @@ class StoreStats:
     observe_seconds: float = 0.0
     store_seconds: float = 0.0
     fit_seconds: float = 0.0
+    live_bytes: int = 0
+    dead_bytes: int = 0
+    reclaimed_bytes: int = 0
+    chain_depth_hist: dict[int, int] = dataclasses.field(default_factory=dict)
     # restore telemetry: the running sum of every absorbed RestoreReport
     restores: int = 0
     restore_bytes_out: int = 0

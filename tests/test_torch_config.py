@@ -134,13 +134,14 @@ def test_registry_listings():
     assert registry.available_indexes() == ["exact"]
     assert registry.available_chunkers() == ["fastcdc"]
     assert registry.available_backends() == ["file", "memory", "objectstore"]
-    assert registry.available_policies() == []
+    assert registry.available_policies() == ["eager", "never", "threshold"]
     assert registry.available_cache_policies() == ["arc", "lru"]
     assert registry.get_chunker("fastcdc") is chunking.ChunkerConfig
     # the reference's own tables hold no port factory
     ref_registry._ensure_builtins()
     for table in (ref_registry._DETECTORS, ref_registry._INDEXES, ref_registry._CHUNKERS,
-                  ref_registry._BACKENDS, ref_registry._CACHE_POLICIES):
+                  ref_registry._BACKENDS, ref_registry._POLICIES,
+                  ref_registry._CACHE_POLICIES):
         assert not any(f.__module__.startswith("repro_torch") for f in table.values())
 
 
@@ -209,13 +210,16 @@ def test_api_exports_are_reference_names():
     from repro_torch import api
     mine = {n for n in vars(api) if not n.startswith("_")} - {
         "types", "restore", "concurrency", "detect", "integrity", "faults", "containers",
-        "objectstore", "store", "registry", "config"}         # the submodules
+        "objectstore", "store", "registry", "config", "lifecycle", "refcount"}  # submodules
     missing = [n for n in sorted(mine) if not hasattr(ref_api, n)]
     assert not missing, f"exported by the port but not by the reference: {missing}"
     for name in ("build_store", "DedupConfig", "DedupStore", "chunk_with", "FileBackend",
                  "ObjectStoreBackend", "LocalObjectStore", "InMemoryBackend", "crc32c",
                  "CorruptChunkError", "CorruptJournalError", "FaultSchedule",
-                 "TransientError", "DeadlineExceededError", "RestoreReport"):
+                 "TransientError", "DeadlineExceededError", "RestoreReport", "RWLock",
+                 "LockTimeout", "RefcountTable", "CollectReport", "CompactionRun",
+                 "ReclamationPolicy", "EagerPolicy", "ThresholdPolicy", "NeverPolicy",
+                 "build_policy", "ScrubReport"):
         assert name in mine and getattr(api, name).__module__.startswith("repro_torch.api")
 
 
@@ -227,9 +231,6 @@ UNPORTED = [
     ({"server_workers": 2}, "Queue 1 item 4"),
     ({"server_args": {"workers": 2}}, "Queue 1 item 4"),
     ({"tenant_args": {"quota_bytes": 1}}, "Queue 1 item 4"),
-    ({"policy": "eager"}, "Queue 1 item 4"),
-    ({"policy": "threshold", "policy_args": {"ratio": 0.5}}, "Queue 1 item 4"),
-    ({"policy_args": {"ratio": 0.5}}, "Queue 1 item 4"),
     ({"detector_args": {**CARD_ARGS, "fused": False}}, "Queue 1 item 5"),
 ]
 
@@ -240,6 +241,43 @@ def test_unported_knob_raises(extra, item):
     cfg = config.DedupConfig.from_dict({"detector": "card", **extra})
     with pytest.raises(NotImplementedError, match=item):
         config.build_store(cfg, device="cpu")
+
+
+# StoreStats the policies are asked about: (live_bytes, dead_bytes)
+POLICY_STATS = [(0, 0), (100, 0), (0, 1), (100, 1), (100, 50), (100, 100), (3, 1), (1, 3)]
+
+
+def _stats_pair(live, dead):
+    from repro_torch.api.types import StoreStats
+    return (StoreStats(live_bytes=live, dead_bytes=dead),
+            ref_api.StoreStats(live_bytes=live, dead_bytes=dead))
+
+
+@pytest.mark.parametrize("d", [{"policy": "eager"},
+                               {"policy": "threshold", "policy_args": {"ratio": 0.5}},
+                               {"policy": "never"}],
+                         ids=["eager", "threshold", "never"])
+def test_policy_from_a_dict_decides_as_the_reference(d):
+    """Each policy is built from a dict on the CPU, through ``build_store``,
+    and decides ``should_compact`` as the reference's on the same stats."""
+    full = {"detector": "dedup-only", **d}
+    store = config.build_store(config.DedupConfig.from_dict(full), device="cpu")
+    ref_policy = ref_api.build_policy(ref_api.DedupConfig.from_dict(full))
+    assert store.policy.name == ref_policy.name == d["policy"]
+    assert type(store.policy).__module__ == "repro_torch.api.lifecycle"
+    for live, dead in POLICY_STATS:
+        stats, ref_stats = _stats_pair(live, dead)
+        assert store.policy.should_compact(stats) == ref_policy.should_compact(ref_stats)
+    store.close()
+
+
+def test_policy_args_a_policy_does_not_take_raise_as_the_reference():
+    d = {"detector": "dedup-only", "policy_args": {"ratio": 0.5}}
+    with pytest.raises(TypeError) as ref_err:
+        ref_api.build_store(ref_api.DedupConfig.from_dict(d))
+    with pytest.raises(TypeError) as err:
+        config.build_store(config.DedupConfig.from_dict(d), device="cpu")
+    assert str(err.value) == str(ref_err.value)
 
 
 @pytest.mark.parametrize("d,err,match", [
