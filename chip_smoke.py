@@ -83,6 +83,29 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               drill ("lifecycle_crash"): the crash-matrix script crashed at
               one compaction crashpoint a backend, copied, reopened, and
               the post-crash contract checked;
+  4e. serve  the multi-tenant server on the card: one DedupServer built
+              from a config dict (``config.build_server``: CARD on
+              "objectstore", 4 workers, tenant limits, a JSONL trace and a
+              4096-span ring), fit on sql_dump version 0; tenants "sql" and
+              "vm" ingest their workload's 4 versions interleaved, one
+              request at a time (kernels A, B and C launch from the
+              server's worker threads); every restore at once plus a range
+              a tenant (SHA-256-identical), a foreign handle (KeyError), a
+              quota shed and an overload shed (typed, the store
+              untouched), the deletes of each tenant's version 0; then the
+              registry after close() (the Prometheus text through the
+              port's strict parser: family and label set, the non-timing
+              values, the histogram counts), the trace's spans and its
+              ``observe dump``; a breaker drill on a small dedup-only store
+              (open, writes shed, half-open, closed); and the object-store
+              CLI in process (``cp`` into a CARD root and a Finesse root, a
+              second ``cp`` into the CARD root, ``ls``, ``stat``,
+              ``verify``, ``scrub``, a copy back out). Every count, charge,
+              DCR, metric value, span count, transition and catalog entry
+              is pinned to the JAX package's (scripts/serve_dcr.py runs the
+              same steps). One JSON line: per-tenant ingest MB/s, stage
+              sums from the registry, concurrent restore MB/s, sheds, CLI
+              seconds by subcommand, launches, the phase's seconds;
   5. fit      the card's context-model fit against a CPU fit from the
               same init and batch stream (per-step loss, transform);
   6. parity   the port on the card and on the CPU over kernel-workload
@@ -101,9 +124,11 @@ Exits non-zero on any mismatch and when there is no CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import os
 import re
@@ -111,7 +136,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1060,9 +1087,9 @@ def lifecycle_dict(backend: str, policy: str, policy_args: dict, root: str) -> d
             **({"verify_reads": True} if backend == "file" else {})}
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, phase: str = "lifecycle") -> None:
     if not cond:
-        raise RuntimeError(f"lifecycle: {msg}")
+        raise RuntimeError(f"{phase}: {msg}")
 
 
 class _Timed:
@@ -1346,6 +1373,460 @@ def crash_drill(dev) -> None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- phase 4e: the multi-tenant server, observability and the CLI -----------
+
+# One server from a config dict: CARD at phase 4's widths on "objectstore"
+# over LocalObjectStore (no latency), 4 workers, default tenant limits, a
+# JSONL trace with a 4096-span ring. Two tenants ingest in this fixed order.
+SERVE_ORDER = (("sql", "sql_dump", 0), ("vm", "vmdk", 0), ("sql", "sql_dump", 1),
+               ("vm", "vmdk", 1), ("sql", "sql_dump", 2), ("vm", "vmdk", 2),
+               ("sql", "sql_dump", 3), ("vm", "vmdk", 3))
+SERVE_TENANT = {"max_inflight": 4, "max_queue": 4}
+# families whose every sample is pinned: what the requests decide, not what
+# the thread timing of the concurrent restores decides (which restore finds
+# a chunk in the decode cache, so GETs, bytes read and read runs are
+# reported, not pinned)
+SERVE_PINNED_FAMILIES = (
+    "repro_ingest_commits_total", "repro_ingest_bytes_total", "repro_ingest_chunks_total",
+    "repro_restore_ops_total", "repro_server_requests_total",
+    "repro_server_breaker_state", "repro_server_breaker_transitions_total",
+    "repro_server_inflight", "repro_tenant_bytes_stored", "repro_tenant_inflight",
+    "repro_tenant_queue_depth", "repro_tenant_requests_total", "repro_tenant_shed_total",
+    "repro_store_bytes", "repro_store_dcr", "repro_store_streams",
+    "repro_gc_freed_bytes_total")
+# histograms whose count (one observation a request, commit or lock
+# acquire) is pinned; their buckets and sums are timings
+SERVE_PINNED_COUNTS = ("repro_ingest_stage_seconds", "repro_restore_stage_seconds",
+                       "repro_restore_requests", "repro_gc_phase_seconds",
+                       "repro_lock_wait_seconds")
+# single samples pinned in a family that is otherwise reported: the bytes
+# the restores return are fixed by the requests, the bytes they read are not
+SERVE_PINNED_SAMPLES = ("repro_restore_bytes_total{dir=out}",)
+SERVE_CLI_ROOTS = (("card_root", ["--detector", "card"]), ("finesse_root", []))
+# What scripts/serve_dcr.py printed (the JAX package on a CPU, the same
+# dict and steps): the card must give exactly these.
+SERVE_REFERENCE: dict = {
+    "ingest": [["sql", 0, 0, 3526, 0, 3517, 9, 28981780], ["vm", 0, 1, 2370, 0, 515, 1855,
+        28550760], ["sql", 1, 2, 3598, 2537, 1011, 50, 1576051], ["vm", 1, 3, 2383,
+        2233, 51, 99, 1673789], ["sql", 2, 4, 3668, 2563, 1051, 54, 1546302], ["vm", 2,
+        5, 2392, 2251, 52, 89, 1466695], ["sql", 3, 6, 3741, 2628, 1061, 52, 1671280],
+        ["vm", 3, 7, 2402, 2269, 52, 81, 1372236]],
+    "tenants": {"sql": {"tenant": "sql", "bytes_stored": 33775413, "bytes_ingested": 33775413,
+        "reserved": 0, "quota_bytes": None, "streams": 4, "pending": 0, "inflight": 0,
+        "requests": 4, "shed": {}}, "vm": {"tenant": "vm", "bytes_stored": 33063480,
+        "bytes_ingested": 33063480, "reserved": 0, "quota_bytes": None, "streams": 4,
+        "pending": 0, "inflight": 0, "requests": 4, "shed": {}}},
+    "dcr": 4.077205,
+    "foreign": "KeyError",
+    "quota": "QuotaExceededError",
+    "overload": "OverloadError",
+    "tight": [[3741, 3741, 0], [3741, 3741, 0]],
+    "shed": {"small": {"quota": 1}, "tight": {"overload": 1}},
+    "deletes": [8623577, 1869357],
+    "tenants_after": {"sql": {"tenant": "sql", "bytes_stored": 4793633, "bytes_ingested":
+        33775413, "reserved": 0, "quota_bytes": None, "streams": 3, "pending": 0,
+        "inflight": 0, "requests": 11, "shed": {}}, "vm": {"tenant": "vm",
+        "bytes_stored": 4512720, "bytes_ingested": 33063480, "reserved": 0,
+        "quota_bytes": None, "streams": 3, "pending": 0, "inflight": 0, "requests": 10,
+        "shed": {}}, "tight": {"tenant": "tight", "bytes_stored": 0, "bytes_ingested":
+        0, "reserved": 0, "quota_bytes": None, "streams": 2, "pending": 0, "inflight":
+        0, "requests": 3, "shed": {"overload": 1}}},
+    "stats": [343732127, 66838893, 56345959, 10492934],
+    "families": [["repro_cache_evictions_total", ""], ["repro_cache_ghost_hits_total", ""],
+        ["repro_corrupt_chunks_total", ""], ["repro_gc_freed_bytes_total", ""],
+        ["repro_gc_phase_seconds", "phase"], ["repro_ingest_bytes_total", "dir"],
+        ["repro_ingest_chunks_total", "kind"], ["repro_ingest_commits_total", ""],
+        ["repro_ingest_stage_seconds", "stage"], ["repro_lock_wait_seconds",
+        "lock,side"], ["repro_objstore_backoff_seconds_total", ""],
+        ["repro_objstore_client_bytes_total", "dir"],
+        ["repro_objstore_client_requests_total", "op"], ["repro_objstore_get_bytes",
+        ""], ["repro_objstore_request_seconds", "op"], ["repro_objstore_retries_total",
+        ""], ["repro_reader_bytes_total", "dir"], ["repro_reader_cache_bytes", "kind"],
+        ["repro_reader_cache_lookups_total", "outcome"],
+        ["repro_reader_io_seconds_total", "phase"], ["repro_reader_requests_total", ""],
+        ["repro_reader_run_bytes", ""], ["repro_reader_run_extents", ""],
+        ["repro_restore_bytes_total", "dir"], ["repro_restore_ops_total", "surface"],
+        ["repro_restore_requests", ""], ["repro_restore_stage_seconds", "stage"],
+        ["repro_server_breaker_state", ""], ["repro_server_breaker_transitions_total",
+        "to"], ["repro_server_inflight", ""], ["repro_server_requests_total",
+        "op,outcome"], ["repro_singleflight_total", "event"], ["repro_store_bytes",
+        "kind"], ["repro_store_dcr", ""], ["repro_store_streams", ""],
+        ["repro_tenant_bytes_stored", "tenant"], ["repro_tenant_inflight", "tenant"],
+        ["repro_tenant_queue_depth", "tenant"], ["repro_tenant_requests_total",
+        "tenant"], ["repro_tenant_shed_total", "reason,tenant"]],
+    "metrics": {"repro_gc_freed_bytes_total{}": 10492934.0, "repro_ingest_bytes_total{dir=in}":
+        343732127.0, "repro_ingest_bytes_total{dir=stored}": 66838893.0,
+        "repro_ingest_chunks_total{kind=delta}": 7310.0,
+        "repro_ingest_chunks_total{kind=dup}": 21963.0,
+        "repro_ingest_chunks_total{kind=raw}": 2289.0, "repro_ingest_commits_total{}":
+        10.0, "repro_restore_bytes_total{dir=out}": 278807357.0,
+        "repro_restore_ops_total{surface=full}": 8.0,
+        "repro_restore_ops_total{surface=iter}": 0.0,
+        "repro_restore_ops_total{surface=range}": 2.0, "repro_server_breaker_state{}":
+        0.0, "repro_server_breaker_transitions_total{to=closed}": 0.0,
+        "repro_server_breaker_transitions_total{to=half_open}": 0.0,
+        "repro_server_breaker_transitions_total{to=open}": 0.0,
+        "repro_server_inflight{}": 0.0,
+        "repro_server_requests_total{op=delete,outcome=ok}": 2.0,
+        "repro_server_requests_total{op=ingest,outcome=ok}": 10.0,
+        "repro_server_requests_total{op=ingest,outcome=overload}": 1.0,
+        "repro_server_requests_total{op=ingest,outcome=quota}": 1.0,
+        "repro_server_requests_total{op=restore,outcome=error}": 1.0,
+        "repro_server_requests_total{op=restore,outcome=ok}": 8.0,
+        "repro_server_requests_total{op=restore_range,outcome=ok}": 2.0,
+        "repro_store_bytes{kind=dead}": 10492934.0, "repro_store_bytes{kind=in}":
+        343732127.0, "repro_store_bytes{kind=live}": 56345959.0,
+        "repro_store_bytes{kind=reclaimed}": 0.0, "repro_store_bytes{kind=stored}":
+        66838893.0, "repro_store_dcr{}": 5.142696289120169, "repro_store_streams{}":
+        10.0, "repro_tenant_bytes_stored{tenant=small}": 0.0,
+        "repro_tenant_bytes_stored{tenant=sql}": 4793633.0,
+        "repro_tenant_bytes_stored{tenant=tight}": 0.0,
+        "repro_tenant_bytes_stored{tenant=vm}": 4512720.0,
+        "repro_tenant_inflight{tenant=small}": 0.0, "repro_tenant_inflight{tenant=sql}":
+        0.0, "repro_tenant_inflight{tenant=tight}": 0.0,
+        "repro_tenant_inflight{tenant=vm}": 0.0,
+        "repro_tenant_queue_depth{tenant=small}": 0.0,
+        "repro_tenant_queue_depth{tenant=sql}": 0.0,
+        "repro_tenant_queue_depth{tenant=tight}": 0.0,
+        "repro_tenant_queue_depth{tenant=vm}": 0.0,
+        "repro_tenant_requests_total{tenant=small}": 1.0,
+        "repro_tenant_requests_total{tenant=sql}": 11.0,
+        "repro_tenant_requests_total{tenant=tight}": 3.0,
+        "repro_tenant_requests_total{tenant=vm}": 10.0,
+        "repro_tenant_shed_total{reason=overload,tenant=tight}": 1.0,
+        "repro_tenant_shed_total{reason=quota,tenant=small}": 1.0},
+    "counts": {"repro_gc_phase_seconds_count{phase=delete}": 2.0,
+        "repro_ingest_stage_seconds_count{stage=chunk}": 10.0,
+        "repro_ingest_stage_seconds_count{stage=delta}": 10.0,
+        "repro_ingest_stage_seconds_count{stage=extract}": 10.0,
+        "repro_ingest_stage_seconds_count{stage=observe}": 10.0,
+        "repro_ingest_stage_seconds_count{stage=score}": 10.0,
+        "repro_ingest_stage_seconds_count{stage=store}": 10.0,
+        "repro_lock_wait_seconds_count{lock=lifecycle,side=read}": 22.0,
+        "repro_lock_wait_seconds_count{lock=lifecycle,side=write}": 2.0,
+        "repro_restore_requests_count{}": 10.0,
+        "repro_restore_stage_seconds_count{stage=decode}": 10.0,
+        "repro_restore_stage_seconds_count{stage=read}": 10.0,
+        "repro_restore_stage_seconds_count{stage=total}": 10.0},
+    "spans": {"ingest": 10, "restore": 10, "gc.delete": 2},
+    "breaker": ["TransientError", "TransientError", "open", "CircuitOpenError",
+        "CircuitOpenError", "open", True, "closed", {"closed": 1, "half_open": 1,
+        "open": 1}, "IngestReport", {"circuit": 2}],
+    "cli": {"card_root": {"v0.bin": [28985425, 1818, 0, 1808], "v1.bin": [1621713, 1855, 975,
+        880], "v2.bin": [15150998, 1894, 996, 895]}, "finesse_root": {"v0.bin":
+        [33554551, 1818, 0, 0], "v1.bin": [2241025, 1855, 975, 765]}},
+}
+
+
+def serve_dict(root: str) -> dict:
+    return {"detector": "card", "detector_args": LIFECYCLE_CARD,
+            "chunker_args": {"avg_size": 8192}, "backend": "objectstore",
+            "backend_args": {"path": os.path.join(root, "objects")},
+            "server_workers": 4, "tenant_args": SERVE_TENANT,
+            "trace_path": os.path.join(root, "trace.jsonl"), "trace_ring_events": 4096}
+
+
+def _outcome(fn, *args, **kwargs):
+    try:
+        return fn(*args, **kwargs)
+    except Exception as e:     # noqa: BLE001 - the type is the outcome
+        return type(e).__name__
+
+
+def metric_samples(parse, text: str) -> tuple[list, dict, dict]:
+    """(sorted [family, label keys], the pinned families' samples, the
+    pinned histograms' counts) of one exposition, through ``parse``."""
+    parsed = parse(text)
+    families, values, counts = set(), {}, {}
+    for name, labels, value in parsed["samples"]:
+        fam = re.sub(r"_(bucket|count|sum)$", "", name) if name not in parsed["types"] else name
+        families.add((fam, ",".join(sorted(k for k in labels if k != "le"))))
+        key = name + "{" + ",".join(f"{k}={v}" for k, v in sorted(labels.items())) + "}"
+        if fam in SERVE_PINNED_FAMILIES or key in SERVE_PINNED_SAMPLES:
+            values[key] = value
+        elif fam in SERVE_PINNED_COUNTS and name.endswith("_count"):
+            counts[key] = value
+    return sorted(list(f) for f in families), values, counts
+
+
+def breaker_drill(env, data: bytes, root: str) -> list:
+    """A dedup-only store on objectstore behind a breaker (2 failures
+    open it, 0.05 s cooldown, 1 probe closes it): two failed restores open
+    it, writes shed while reads go on, a restore probe closes it."""
+    storm = threading.Event()
+
+    def hook(op, key, n):
+        if storm.is_set() and op == "get":
+            return env.faults.TransientError(503, f"storm {op} #{n}")
+        return None
+
+    store = env.build_store({"detector": "dedup-only", "chunker_args": {"avg_size": 8192},
+                             "backend": "objectstore",
+                             "backend_args": {"path": root, "fault_hook": hook,
+                                              "max_retries": 0, "cache_bytes": 1}})
+    breaker = env.serve.CircuitBreaker(fail_threshold=2, window_seconds=5.0,
+                                       cooldown_seconds=0.05, probe_successes=1)
+    srv = env.serve.DedupServer(store, workers=2, breaker=breaker)
+    try:
+        handle = srv.ingest("t", data).handle
+        storm.set()
+        out = [_outcome(srv.restore, "t", handle) for _ in range(2)] + [breaker.state()]
+        out += [_outcome(srv.ingest, "t", b"rejected"), _outcome(srv.delete, "t", handle),
+                breaker.state()]
+        time.sleep(0.06)
+        storm.clear()
+        out += [srv.restore("t", handle) == data, breaker.state(),
+                dict(breaker.transitions), type(srv.ingest("t", data[:4096])).__name__,
+                srv.tenant_stats("t")["shed"]]
+        return out
+    finally:
+        srv.close(close_store=True)
+
+
+def cli_steps(env, versions: list[bytes], tmp: str) -> tuple[dict, dict]:
+    """The object-store CLI in process: versions 0 and 1 into a CARD root
+    and a default (Finesse) root, version 2 into the CARD root in a second
+    invocation (digest seeds from the catalog), then ls, stat, verify and
+    scrub of each root, and one object copied back out."""
+    files = []
+    for i, v in enumerate(versions[:3]):
+        files.append(os.path.join(tmp, f"v{i}.bin"))
+        with open(files[-1], "wb") as f:
+            f.write(v)
+    seconds: dict = {}
+    pinned: dict = {}
+
+    def run(label, argv):
+        t0 = time.perf_counter()
+        rc = env.cli(argv)
+        seconds[label] = seconds.get(label, 0.0) + time.perf_counter() - t0
+        _require(rc == 0, f"cli {argv[0]} {argv[1:]} exited {rc}", "serve")
+
+    for name, extra in SERVE_CLI_ROOTS:
+        url = "obj://" + os.path.join(tmp, name)
+        run(f"cp {name}", ["cp", *files[:2], url, *extra])
+        if name == "card_root":
+            run("cp second invocation", ["cp", files[2], url])
+        for cmd in ("ls", "stat", "verify", "scrub"):
+            run(cmd, [cmd, url])
+        with open(os.path.join(tmp, name, "catalog.json")) as f:
+            cat = json.load(f)
+        pinned[name] = {n: [e["stored"], e["chunks"], e["dup_chunks"], e["delta_chunks"]]
+                        for n, e in sorted(cat["files"].items())}
+    out = os.path.join(tmp, "restored.bin")
+    run("cp out", ["cp", "obj://" + os.path.join(tmp, "card_root", "v0.bin"), out])
+    with open(out, "rb") as f:
+        _require(f.read() == versions[0], "the CLI's copy out is not version 0", "serve")
+    return pinned, seconds
+
+
+def serve_steps(env, versions: dict[str, list[bytes]], tmp: str, mark=lambda label: None
+                ) -> tuple[dict, dict]:
+    """Phase 4e's steps. ``env`` carries one package's ``build_server``,
+    ``build_store``, ``serve``, ``faults``, ``parse`` (its Prometheus
+    parser), ``dump`` (its observe CLI) and ``cli`` (its object-store CLI):
+    the port's on the card here, the JAX package's in scripts/serve_dcr.py,
+    which calls this very function. Returns (pinned, measured)."""
+    sha = hashlib.sha256
+    pinned: dict = {}
+    measured: dict = {}
+    srv = env.build_server(serve_dict(tmp))
+    store = srv.store
+    try:
+        t0 = time.perf_counter()
+        store.fit(versions["sql_dump"][:1])
+        measured["fit_s"] = time.perf_counter() - t0
+
+        mark("start")
+        handles: dict[str, list[int]] = {"sql": [], "vm": []}
+        want: dict[tuple[str, int], bytes] = {}
+        reports, measured["ingest_s"] = [], {"sql": 0.0, "vm": 0.0}
+        for tenant, name, v in SERVE_ORDER:
+            t0 = time.perf_counter()
+            r = srv.submit(tenant, "ingest", versions[name][v]).result()
+            measured["ingest_s"][tenant] += time.perf_counter() - t0
+            handles[tenant].append(r.handle)
+            want[(tenant, r.handle)] = versions[name][v]
+            reports.append([tenant, v, r.handle, r.chunks, r.dup_chunks, r.delta_chunks,
+                            r.raw_chunks, r.bytes_stored])
+        pinned["ingest"] = reports
+        pinned["tenants"] = {t: srv.tenant_stats(t) for t in ("sql", "vm")}
+        pinned["dcr"] = round(store.stats.dcr, 6)
+
+        # every restore at once, both tenants, plus one range each
+        t0 = time.perf_counter()
+        futs = {key: srv.submit(key[0], "restore", key[1]) for key in want}
+        ranges = {t: srv.submit(t, "restore_range", handles[t][1], 1 << 20, 3 << 20)
+                  for t in ("sql", "vm")}
+        for key, fut in futs.items():
+            _require(sha(fut.result()).digest() == sha(want[key]).digest(),
+                     f"restore {key} is not its input", "serve")
+        for t, fut in ranges.items():
+            _require(fut.result() == want[(t, handles[t][1])][1 << 20:4 << 20],
+                     f"range of {t} is not its input", "serve")
+        measured["restore_s"] = time.perf_counter() - t0
+        measured["restore_mb_per_s"] = (sum(map(len, want.values())) + (6 << 20)) / 1e6 \
+            / measured["restore_s"]
+        pinned["foreign"] = _outcome(srv.restore, "sql", handles["vm"][0])
+        _require(pinned["foreign"] == "KeyError", "a foreign handle did not raise KeyError",
+                 "serve")
+
+        # typed sheds: a quota below one version, then a full queue
+        before = dataclasses.asdict(store.stats)
+        srv.add_tenant("small", quota_bytes=len(versions["sql_dump"][0]) // 2)
+        pinned["quota"] = _outcome(srv.ingest, "small", versions["sql_dump"][0])
+        after = dataclasses.asdict(store.stats)
+        _require(after == before, f"the quota shed changed the store: {before} -> {after}",
+                 "serve")
+        srv.add_tenant("tight", max_inflight=1, max_queue=1)
+        dup = versions["sql_dump"][3]
+        admitted = [srv.submit("tight", "ingest", dup) for _ in range(2)]
+        pinned["overload"] = _outcome(srv.submit, "tight", "ingest", dup)
+        tight = [f.result() for f in admitted]
+        pinned["tight"] = sorted([r.chunks, r.dup_chunks, r.bytes_stored] for r in tight)
+        pinned["shed"] = {t: srv.tenant_stats(t)["shed"] for t in ("small", "tight")}
+        _require((pinned["quota"], pinned["overload"]) == ("QuotaExceededError",
+                                                           "OverloadError"),
+                 f"sheds are not typed: {pinned['quota']}, {pinned['overload']}", "serve")
+
+        t0 = time.perf_counter()
+        pinned["deletes"] = [srv.delete(t, handles[t][0]) for t in ("sql", "vm")]
+        measured["delete_s"] = time.perf_counter() - t0
+        pinned["tenants_after"] = {t: srv.tenant_stats(t) for t in ("sql", "vm", "tight")}
+        pinned["stats"] = [store.stats.bytes_in, store.stats.bytes_stored,
+                           store.stats.live_bytes, store.stats.dead_bytes]
+        mark("end")
+    finally:
+        srv.close()
+    # after close(): every worker's metric shard is folded in
+    text = store.metrics().to_prometheus()
+    pinned["families"], pinned["metrics"], pinned["counts"] = metric_samples(env.parse, text)
+    snap = store.metrics().snapshot()
+    measured["stage_sums_s"] = {
+        s["labels"]["stage"]: s["sum"]
+        for s in snap["repro_ingest_stage_seconds"]["samples"]}
+    measured["restore_sums_s"] = {
+        s["labels"]["stage"]: s["sum"]
+        for s in snap["repro_restore_stage_seconds"]["samples"]}
+    ops_ = store.observe.tracer.ops()
+    pinned["spans"] = {op: ops_.get(op, 0) for op in ("ingest", "restore", "gc.delete")}
+    store.close()
+    trace = os.path.join(tmp, "trace.jsonl")
+    with open(trace) as f:
+        measured["trace_lines"] = sum(1 for line in f if line.strip())
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _require(env.dump(["dump", trace]) == 0, "dump of the trace failed", "serve")
+    measured["dump_lines"] = len(printed.getvalue().splitlines())
+    t0 = time.perf_counter()
+    pinned["breaker"] = breaker_drill(env, versions["sql_dump"][0][:1 << 20],
+                                      os.path.join(tmp, "breaker"))
+    measured["breaker_s"] = time.perf_counter() - t0
+    pinned["cli"], measured["cli_s"] = cli_steps(env, versions["sql_dump"], tmp)
+    return pinned, measured
+
+
+def concurrent_ingests(env, dev, versions: dict[str, list[bytes]], tmp: str) -> dict:
+    """Card only, not pinned: tenants ``sql`` and ``vm`` submit an ingest
+    (the first 8 MiB of version 1 of each workload: about 1,000 chunks, so
+    the second commit's index passes kernel C's 512 rows) at the same
+    moment into a fresh fitted server. The commit lock serialises the two
+    commits with their device work, so the reports and kernels A-C's
+    launches must be those of the same two ingests run one after the
+    other, in one order or the other, on fresh servers; each restore must
+    be its input, and the TF32 state must be what it was before."""
+    sha = hashlib.sha256
+    pair = (("sql", versions["sql_dump"][1][:8 << 20]), ("vm", versions["vmdk"][1][:8 << 20]))
+    tf32 = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+
+    def run(order, label: str) -> tuple[dict, dict, float]:
+        root = os.path.join(tmp, "concurrent_" + label)
+        os.makedirs(root)
+        srv = env.build_server(serve_dict(root))
+        try:
+            srv.store.fit(versions["sql_dump"][:1])
+            torch.cuda.synchronize(dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            if label == "together":
+                futs = [(t, srv.submit(t, "ingest", data)) for t, data in order]
+                reports = {t: f.result() for t, f in futs}
+            else:
+                reports = {t: srv.submit(t, "ingest", data).result() for t, data in order}
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            lc = card_launches(f"serve: ingests {label}")
+            for t, data in order:
+                _require(sha(srv.restore(t, reports[t].handle)).digest() == sha(data).digest(),
+                         f"concurrent ingests ({label}): {t}'s restore is not its input",
+                         "serve")
+        finally:
+            srv.close(close_store=True)
+        got = {t: [r.chunks, r.dup_chunks, r.delta_chunks, r.raw_chunks, r.bytes_stored]
+               for t, r in reports.items()}
+        return got, lc, seconds
+
+    serial = {"sql,vm": run(pair, "sql_vm"), "vm,sql": run(pair[::-1], "vm_sql")}
+    got, lc, seconds = run(pair, "together")
+    orders = [o for o, (r, l, _) in serial.items() if (r, l) == (got, lc)]
+    _require(bool(orders), f"concurrent ingests: reports {got} and launches {lc} are those "
+             f"of neither serial order: {({o: v[:2] for o, v in serial.items()})}", "serve")
+    after = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    _require(after == tf32 and not after[1],
+             f"concurrent ingests: TF32 state {tf32} -> {after}", "serve")
+    return {"as_serial_order": orders, "reports": got, "launches": lc,
+            "serial_launches": {o: v[1] for o, v in serial.items()},
+            "seconds": seconds, "serial_seconds": {o: v[2] for o, v in serial.items()},
+            "tf32_after": after}
+
+
+def serve_phase(dev, main_versions: dict[str, list[bytes]]) -> dict[str, int]:
+    """Phase 4e on the card: every pinned number must be SERVE_REFERENCE's,
+    and kernels A, B and C must launch inside the server's ingests."""
+    from repro_torch.api import objectstore, observe, serve as serve_mod
+    env = types.SimpleNamespace(
+        build_server=lambda d: config.build_server(config.DedupConfig.from_dict(d),
+                                                   device=dev),
+        build_store=lambda d: config.build_store(config.DedupConfig.from_dict(d),
+                                                 device=dev),
+        serve=serve_mod, faults=faults, parse=observe.parse_prometheus_text,
+        dump=observe.main, cli=objectstore.main)
+    marks: dict[str, dict] = {}
+
+    def mark(label: str) -> None:
+        torch.cuda.synchronize(dev)
+        if label == "start":
+            ops.reset_launches()
+        marks[label] = dict(ops.LAUNCHES)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    t_phase = time.perf_counter()
+    try:
+        integrity.reset_crc32c_stats()
+        pinned, measured = serve_steps(env, main_versions, tmp, mark)
+        concurrent = concurrent_ingests(env, dev, main_versions, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lc = card_launches("serve: the server's ingests", counts=marks["end"])
+    got = json.loads(json.dumps(pinned))
+    want = json.loads(json.dumps(SERVE_REFERENCE))
+    if got != want:
+        diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                if got.get(k) != want.get(k)}
+        fail(f"serve: not the reference's numbers: {diff}")
+    ingest_mb_s = {t: sum(len(main_versions[n][v]) for tt, n, v in SERVE_ORDER if tt == t)
+                   / 1e6 / measured["ingest_s"][t] for t in ("sql", "vm")}
+    emit("serve", base_mib=BASE / 2**20, versions=VERSIONS, workers=4, tenant=SERVE_TENANT,
+         dcr=pinned["dcr"], ingest_mb_per_s=ingest_mb_s,
+         restore_mb_per_s=measured["restore_mb_per_s"], sheds=pinned["shed"],
+         quota=pinned["quota"], overload=pinned["overload"], breaker=pinned["breaker"],
+         spans=pinned["spans"], cli=pinned["cli"], pinned="the JAX package's",
+         restored="sha256-identical", seconds=measured, concurrent=concurrent,
+         crc32c=dict(route=integrity.crc32c_route(), **integrity.CRC32C_STATS),
+         launches=lc, phase_s=time.perf_counter() - t_phase)
+    return lc
+
+
 # --- phases 5 and 6: the card's fit, then card / CPU parity ------------------
 
 def record_verdicts(det) -> list:
@@ -1621,6 +2102,8 @@ def main() -> int:
         for k, v in backends_phase(dev, name, versions).items():
             launches[k] += v
     for k, v in lifecycle_phase(dev, main_versions).items():
+        launches[k] += v
+    for k, v in serve_phase(dev, main_versions).items():
         launches[k] += v
     small = workloads.make_workload(
         "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))

@@ -14,11 +14,20 @@
     store.compact()                       # ... and reclaim its bytes
     store.close()
 
+    srv = api.build_server(api.DedupConfig.from_dict(
+        {"detector": "card", "server_workers": 4,
+         "tenant_args": {"quota_bytes": 1 << 30}}))      # on the card
+    srv.store.fit([first_version])
+    report = srv.ingest("tenant-a", first_version)
+    srv.store.metrics().to_prometheus()
+
 ``scrub`` and the crash-script harness (``run_crash_script``,
 ``snapshot_dir``, ``check_crash_invariants``, ``abandon``, ``CrashRun``)
 stay in ``api.integrity`` and ``api.faults``, where the reference keeps
-them too. Not ported yet: the multi-tenant server, observability and the
-S3 client.
+them too. Not ported: the S3 client. The object store, observability and
+serving names resolve lazily, as in the reference: ``python -m
+repro_torch.api.objectstore`` / ``... .observe`` must find their module
+not yet imported.
 """
 from repro_torch.api.types import (  # noqa: F401
     DetectBatch,
@@ -74,10 +83,6 @@ from repro_torch.api.containers import (  # noqa: F401
     InMemoryBackend,
     PlannedChainReader,
 )
-from repro_torch.api.objectstore import (  # noqa: F401
-    LocalObjectStore,
-    ObjectStoreBackend,
-)
 from repro_torch.api.refcount import RefcountTable  # noqa: F401
 from repro_torch.api.store import DedupStore, StreamSession, chunk_with  # noqa: F401
 from repro_torch.api.lifecycle import (  # noqa: F401
@@ -111,5 +116,24 @@ from repro_torch.api.config import (  # noqa: F401
     build_chunker,
     build_detector,
     build_policy,
+    build_server,
     build_store,
 )
+
+# name -> module of the names resolved on first access (PEP 562)
+_LAZY_EXPORTS = {
+    **dict.fromkeys(("LocalObjectStore", "ObjectStoreBackend"), "objectstore"),
+    **dict.fromkeys(("MetricsRegistry", "Observability", "Tracer",
+                     "parse_prometheus_text"), "observe"),
+    **dict.fromkeys(("CircuitBreaker", "CircuitOpenError", "DedupServer",
+                     "OverloadError", "QuotaExceededError", "RequestRejected",
+                     "TenantConfig"), "serve"),
+}
+
+
+def __getattr__(name: str):
+    module = _LAZY_EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

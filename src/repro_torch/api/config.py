@@ -16,11 +16,13 @@ own registry, ``api/registry.py``) plus keyword arguments for its factory:
 device is an argument of the ``build_*`` functions, not a config key.
 
 The serving knobs (``restore_*``, ``verify_reads``, ``retry_deadline``)
-reach the backend factory as the reference forwards them. Components that
-are not ported yet are refused, never silently dropped: a knob that needs
-one raises ``NotImplementedError`` naming its ROADMAP Queue 1 item.
-Backends: ``"memory"``, ``"file"`` and ``"objectstore"``; ``"s3"`` needs
-boto3 and is not ported (its lookup raises ``KeyError``).
+reach the backend factory as the reference forwards them; ``trace_path`` /
+``trace_ring_events`` reach the store, and ``build_server`` wraps the store
+in a ``DedupServer`` sized by ``server_workers`` / ``server_args`` /
+``tenant_args``. Backends: ``"memory"``, ``"file"`` and ``"objectstore"``;
+``"s3"`` needs boto3 and is not ported (its lookup raises ``KeyError``).
+The one knob not ported, ``detector_args`` ``"fused": False`` (ROADMAP
+Queue 1 item 5), is refused by the ``"card"`` factory.
 """
 from __future__ import annotations
 
@@ -61,16 +63,6 @@ _BACKEND_KNOBS = {"restore_cache_bytes": "cache_bytes",
                   "restore_tier_bytes": "tier_bytes",
                   "verify_reads": "verify_reads",
                   "retry_deadline": "retry_deadline"}
-
-# knobs whose component the port does not have yet -> what is missing
-_UNPORTED = {
-    "trace_path": "observability (ROADMAP Queue 1 item 4)",
-    "trace_ring_events": "observability (ROADMAP Queue 1 item 4)",
-    "server_workers": "the multi-tenant server (ROADMAP Queue 1 item 4)",
-    "server_args": "the multi-tenant server (ROADMAP Queue 1 item 4)",
-    "tenant_args": "the multi-tenant server (ROADMAP Queue 1 item 4)",
-}
-
 
 @dataclasses.dataclass
 class DedupConfig:
@@ -155,15 +147,6 @@ class DedupConfig:
         return dataclasses.asdict(self)
 
 
-def _check_ported(cfg: DedupConfig) -> None:
-    """Raise ``NotImplementedError`` for the first knob that is set and
-    needs a component the port does not have yet."""
-    for name, missing in _UNPORTED.items():
-        value = getattr(cfg, name)
-        if value is not None and value != {}:
-            raise NotImplementedError(f"{name} needs {missing}, not ported yet")
-
-
 def build_detector(cfg: DedupConfig, device: str | torch.device | None = None) -> Any:
     return registry.get_detector(cfg.detector)(**cfg.detector_args, device=device)
 
@@ -200,7 +183,23 @@ def build_policy(cfg: DedupConfig) -> Any:
 def build_store(cfg: DedupConfig, device: str | torch.device | None = None) -> DedupStore:
     """Resolve every component through the port's registry and assemble
     the store on ``device`` (the CUDA device unless ``"cpu"``)."""
-    _check_ported(cfg)
     return DedupStore(build_detector(cfg, device), build_chunker(cfg),
                       backend=build_backend(cfg), policy=build_policy(cfg),
-                      device=device)
+                      trace_path=cfg.trace_path,
+                      trace_ring_events=cfg.trace_ring_events, device=device)
+
+
+def build_server(cfg: DedupConfig, store: DedupStore | None = None,
+                 device: str | torch.device | None = None):
+    """``build_store`` on ``device`` plus a ``DedupServer`` over it, sized
+    by ``server_workers`` with ``tenant_args`` as the default per-tenant
+    limits. Pass an existing ``store`` to front one that already serves."""
+    from repro_torch.api.serve import DedupServer, TenantConfig
+    if store is None:
+        store = build_store(cfg, device=device)
+    kwargs = dict(cfg.server_args)
+    if cfg.server_workers is not None and "workers" not in kwargs:
+        kwargs["workers"] = cfg.server_workers
+    if cfg.tenant_args and "default_tenant" not in kwargs:
+        kwargs["default_tenant"] = TenantConfig(**cfg.tenant_args)
+    return DedupServer(store, **kwargs)

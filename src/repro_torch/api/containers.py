@@ -1,5 +1,4 @@
-"""Pluggable container backends (port of ``repro.api.containers``, whole
-except ``bind_observability``, which comes with ``observe.py``;
+"""Pluggable container backends (port of ``repro.api.containers``, whole;
 DESIGN.md §2.3, lifecycle in §7).
 
 A ``ContainerBackend`` owns the three persistent artifacts of the store:
@@ -332,6 +331,12 @@ class PlannedChainReader:
     _verify_reads = False
     _faults = None
 
+    # observability (§12): set by bind_observability, None until then
+    _obs = None
+    _h_run_bytes = None
+    _h_run_extents = None
+    _c_corrupt = None
+
     # cold-decode singleflight + heat defaults (§14.2, §14.4): real
     # per-instance state comes from _init_read_engine_state(); the
     # class-level Nones keep a subclass that never calls it working
@@ -410,7 +415,79 @@ class PlannedChainReader:
             return
         actual = crc32c(payload)
         if actual != expected:
+            if self._c_corrupt is not None:
+                self._c_corrupt.inc()
             raise CorruptChunkError(cid, self._read_desc(), expected, actual)
+
+    def bind_observability(self, obs) -> None:
+        """Attach a store's ``Observability`` (DESIGN.md §12): coalesced
+        read-run shapes are recorded natively, and the reader's existing
+        lifetime counters — ``IoTelemetry`` totals and the decode-cache
+        tallies — are re-exported as snapshot-time derived views, never
+        double-counted."""
+        from repro_torch.api import observe as om
+        self._obs = obs
+        m = obs.metrics
+        self._h_run_bytes = m.histogram(
+            "repro_reader_run_bytes",
+            "Coalesced payload read-run width (one pread / ranged GET; "
+            "§9.1, §11.3)", bounds=om.BYTES_BUCKETS)
+        self._h_run_extents = m.histogram(
+            "repro_reader_run_extents",
+            "Records served by one coalesced read run",
+            bounds=om.COUNT_BUCKETS)
+        self._c_corrupt = m.counter(
+            "repro_corrupt_chunks_total",
+            "Payload checksum failures on the verified read path (§13.2)")
+        tel, cache = self._telemetry, self._cache
+        c_seconds = {p: m.counter("repro_reader_io_seconds_total",
+                                  "Lifetime read vs. decode time",
+                                  labels={"phase": p})
+                     for p in ("read", "decode")}
+        c_bytes = {d: m.counter("repro_reader_bytes_total",
+                                "Payload bytes read / readahead-prefetched",
+                                labels={"dir": d})
+                   for d in ("read", "prefetch")}
+        c_requests = m.counter("repro_reader_requests_total",
+                               "Physical payload reads issued")
+        c_cache = {k: m.counter("repro_reader_cache_lookups_total",
+                                "Decode-cache probe outcomes (§9.2)",
+                                labels={"outcome": k})
+                   for k in ("hit", "miss")}
+        g_cache = {k: m.gauge("repro_reader_cache_bytes",
+                              "Decode-cache residency", labels={"kind": k})
+                   for k in ("current", "peak")}
+        c_ghost = m.counter(
+            "repro_cache_ghost_hits_total",
+            "Misses on recently-evicted chunks (the scan-resistance "
+            "adaptation signal; §14.1)")
+        c_evict = m.counter(
+            "repro_cache_evictions_total",
+            "Decode-cache evictions across every shard (§14.1)")
+        c_sf = {e: m.counter(
+                    "repro_singleflight_total",
+                    "Cold-decode singleflight outcomes: plans parked on "
+                    "a foreign in-flight decode / chunks served from one "
+                    "(§14.2)", labels={"event": e})
+                for e in ("wait", "collapsed")}
+
+        def _export_reader_views() -> None:
+            t = tel.totals()    # COUNTER_FIELDS order
+            c_seconds["read"].set_total(t[0])
+            c_seconds["decode"].set_total(t[1])
+            c_bytes["read"].set_total(t[2])
+            c_cache["hit"].set_total(t[3])
+            c_cache["miss"].set_total(t[4])
+            c_bytes["prefetch"].set_total(t[5])
+            c_requests.set_total(t[6])
+            g_cache["current"].set(cache.bytes)
+            g_cache["peak"].set(cache.peak_bytes)
+            c_ghost.set_total(getattr(cache, "ghost_hits", 0))
+            c_evict.set_total(getattr(cache, "evictions", 0))
+            c_sf["wait"].set_total(self._sf_waits)
+            c_sf["collapsed"].set_total(self._sf_collapsed)
+
+        m.register_callback(_export_reader_views)
 
     def fold_io_counters(self) -> None:
         """Fold the calling thread's telemetry record into the lifetime
@@ -676,6 +753,12 @@ class PlannedChainReader:
                 # stores, KB-scale for the local log; §9.1, §11.3)
                 runs = coalesce_reads(reads, self._merge_gap,
                                       self._max_run)
+                h_run = self._h_run_bytes
+                if h_run is not None:       # §12.3: run shapes, natively
+                    h_ext = self._h_run_extents
+                    for start, end, extents in runs:
+                        h_run.observe(end - start)
+                        h_ext.observe(len(extents))
 
                 remaining = dict(plan.dependents)
                 order = plan.decode_order

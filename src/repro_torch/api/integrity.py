@@ -1,6 +1,5 @@
 """Record checksums, typed corruption errors and the scrub walk (port of
-``repro.api.integrity``; the scrub records into no metrics registry until
-observability is ported).
+``repro.api.integrity``).
 
     crc32c()            the record checksum (Castagnoli CRC-32C);
                         ``google_crc32c`` when it imports, else the
@@ -364,4 +363,40 @@ def scrub(store: Any, repair: bool = False) -> ScrubReport:
         quarantined=tuple(quarantined), retired_streams=tuple(retired),
         seconds=seconds, payload_requests=payload_requests,
         payload_requests_naive=payload_requests_naive)
+    _observe_scrub(store, report)
     return report
+
+
+def _observe_scrub(store: Any, report: ScrubReport) -> None:
+    """Record the walk into the store's registry / tracer: duration,
+    chunks by checksum outcome, quarantine totals. Tolerates stores
+    without an Observability (test doubles)."""
+    obs = getattr(store, "observe", None)
+    if obs is None:
+        return
+    from repro_torch.api import observe as om
+    m = obs.metrics
+    m.histogram("repro_scrub_seconds", "Scrub walk duration (§13.3)",
+                bounds=om.SECONDS_BUCKETS).observe(report.seconds)
+    for outcome, n in (("verified", report.verified),
+                       ("unverifiable", report.unverifiable),
+                       ("corrupt", len(report.corrupt))):
+        m.counter("repro_scrub_chunks_total",
+                  "Scrubbed chunks by checksum outcome (§13.3)",
+                  labels={"outcome": outcome}).inc(n)
+    if report.repaired:
+        m.counter("repro_scrub_quarantined_total",
+                  "Chunks durably quarantined by scrub repair").inc(
+                      len(report.quarantined))
+        m.counter("repro_scrub_retired_streams_total",
+                  "Streams retired by scrub repair").inc(
+                      len(report.retired_streams))
+    tr = obs.tracer
+    if tr is not None:
+        tr.record("scrub", report.seconds, chunks=report.chunks,
+                  payload_requests=report.payload_requests,
+                  verified=report.verified,
+                  unverifiable=report.unverifiable,
+                  corrupt=len(report.corrupt), lost=len(report.lost),
+                  streams_lost=len(report.streams_lost),
+                  repaired=report.repaired)

@@ -135,15 +135,24 @@ def _observe_gc(store: Any, phase: str, seconds: float,
                 counters: dict[str, int] | None = None,
                 **labels) -> None:
     """Record one reclamation phase into the store's registry / tracer.
-    Tolerates stores without an Observability, as the reference does for
-    its test doubles; the port's store has none until observability is
-    ported, so nothing is recorded yet."""
+    ``counters`` increments ``repro_gc_<name>_total`` series; tolerates
+    stores without an Observability (lifecycle functions also run against
+    test doubles)."""
     obs = getattr(store, "observe", None)
     if obs is None:
         return
-    raise NotImplementedError(
-        f"gc.{phase}: observability is not ported yet "
-        "(ROADMAP Queue 1 item 4)")
+    from repro_torch.api import observe as om
+    m = obs.metrics
+    m.histogram("repro_gc_phase_seconds",
+                "Reclamation phase timings (§7)", labels={"phase": phase},
+                bounds=om.SECONDS_BUCKETS).observe(seconds)
+    if counters:
+        for name, value in counters.items():
+            m.counter(f"repro_gc_{name}_total",
+                      "Reclamation outcome totals (§7)").inc(value)
+    tr = obs.tracer
+    if tr is not None:
+        tr.record("gc." + phase, seconds, **labels)
 
 
 def rebind_store_views(store: Any) -> None:

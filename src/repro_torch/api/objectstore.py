@@ -1,7 +1,19 @@
-"""Object-store container backend and its fault-injecting local fake
-(port of ``repro.api.objectstore``; ``S3ObjectClient``, the ``"s3"``
-backend and the ``cp``/``ls``/``stat``/``verify`` CLI are not ported:
-boto3 is not installed, and the CLI comes in a later slice).
+"""Object-store container backend, its fault-injecting local fake and the
+``cp``/``ls``/``stat``/``verify``/``scrub`` CLI (port of
+``repro.api.objectstore``; ``S3ObjectClient`` and the ``"s3"`` backend are
+not ported: boto3 is on neither machine).
+
+  CLI                 ``python -m repro_torch.api.objectstore cp/ls/stat/
+                      verify/scrub``: copy local files into a deduplicated
+                      object store, list logical vs physical bytes,
+                      verify restores by SHA-256, fsck. A store root holds
+                      ``catalog.json`` (names -> stream handles, SHAs and
+                      sizes, the pinned DedupConfig, the digest seeds) and
+                      ``objects/`` (the object tree), byte for byte the
+                      reference's layout, so either package's CLI reads a
+                      root the other wrote. The one difference: ``cp``,
+                      ``verify`` and ``scrub`` take ``--device`` (default
+                      ``cuda``; ``cpu`` runs the store's plain path).
 
   ObjectStoreBackend  a full ``ContainerBackend`` that keeps the chunk
                       log as immutable *container objects* and serves
@@ -56,9 +68,12 @@ compaction.
 """
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
 import os
 import random
+import sys
 import threading
 import time
 from pathlib import Path
@@ -413,7 +428,6 @@ class DiskTierCache:
         return len(self._sizes)
 
 
-@register_backend("objectstore")
 class ObjectStoreBackend(PlannedChainReader):
     """``ContainerBackend`` over an object API (module docstring, §11).
 
@@ -554,6 +568,86 @@ class ObjectStoreBackend(PlannedChainReader):
             self._call(self.client.put, _MANIFEST_KEY,
                        json.dumps({"epoch": self.epoch}).encode())
 
+    # --- observability (§12) -------------------------------------------------
+
+    _h_req_seconds = None
+    _h_get_bytes = None
+    _c_backoff = None
+
+    def bind_observability(self, obs) -> None:
+        """Base binding (run shapes + reader views) plus the remote-store
+        instruments: per-request latency histograms by op, ranged-GET
+        response sizes, retry/backoff accounting. The client's own
+        request/byte counters — every attempt, fault-injected ones
+        included — are re-exported as derived views."""
+        super().bind_observability(obs)
+        from repro_torch.api import observe as om
+        m = obs.metrics
+        self._h_req_seconds = {
+            op: m.histogram("repro_objstore_request_seconds",
+                            "Client request latency per attempt (§11.2)",
+                            labels={"op": op}, bounds=om.SECONDS_BUCKETS)
+            for op in ("put", "get", "head", "list", "delete")}
+        self._h_get_bytes = m.histogram(
+            "repro_objstore_get_bytes", "Ranged-GET response sizes (§11.3)",
+            bounds=om.BYTES_BUCKETS)
+        self._c_backoff = m.counter(
+            "repro_objstore_backoff_seconds_total",
+            "Time slept in the retry policy's exponential backoff")
+        c_retries = m.counter("repro_objstore_retries_total",
+                              "Transient failures absorbed by the retry "
+                              "policy")
+        client = self.client
+        tier = self._tier
+        c_tier = g_tier = None
+        if tier is not None:
+            c_tier = {
+                "hit": m.counter("repro_tier_lookups_total",
+                                 "Disk-tier probe outcomes (§14.3)",
+                                 labels={"outcome": "hit"}),
+                "miss": m.counter("repro_tier_lookups_total",
+                                  "Disk-tier probe outcomes (§14.3)",
+                                  labels={"outcome": "miss"}),
+                "served": m.counter("repro_tier_bytes_total",
+                                    "Bytes served from / filled into the "
+                                    "disk tier", labels={"dir": "served"}),
+                "filled": m.counter("repro_tier_bytes_total",
+                                    "Bytes served from / filled into the "
+                                    "disk tier", labels={"dir": "filled"}),
+                "dropped": m.counter("repro_tier_dropped_total",
+                                     "Tier entries unlinked on crc "
+                                     "mismatch (bit rot or "
+                                     "post-compaction staleness; §14.3)"),
+            }
+            g_tier = m.gauge("repro_tier_bytes", "Disk-tier residency")
+
+        def _export_objstore_views() -> None:
+            if c_tier is not None:
+                c_tier["hit"].set_total(tier.hits)
+                c_tier["miss"].set_total(tier.misses)
+                c_tier["served"].set_total(tier.bytes_served)
+                c_tier["filled"].set_total(tier.bytes_filled)
+                c_tier["dropped"].set_total(tier.dropped)
+                g_tier.set(tier.bytes)
+            c_retries.set_total(self.retries)
+            op_counts = getattr(client, "op_counts", None)
+            if op_counts is not None:
+                for op, n in list(op_counts.items()):
+                    m.counter("repro_objstore_client_requests_total",
+                              "Client requests by op, every attempt "
+                              "counted", labels={"op": op}).set_total(n)
+            for attr, d in (("bytes_put", "put"), ("bytes_got", "got")):
+                v = getattr(client, attr, None)
+                if v is not None:
+                    m.counter("repro_objstore_client_bytes_total",
+                              "Object bytes shipped to / from the store",
+                              labels={"dir": d}).set_total(v)
+
+        m.register_callback(_export_objstore_views)
+
+    # client method name -> exported op label (§12.2 naming)
+    _OP_LABELS = {"get_range": "get", "delete_object": "delete"}
+
     # --- request plumbing ----------------------------------------------------
 
     def _call(self, fn, *args):
@@ -567,15 +661,30 @@ class ObjectStoreBackend(PlannedChainReader):
         raises ``RetryBudgetExceeded`` carrying the attempt count and
         slept seconds. Every attempt — including failed ones — shows up
         in the client's own request counters; ``self.retries`` totals
-        the absorbed faults. The loop itself is ``faults.with_retries``."""
+        the absorbed faults. When an Observability is bound, every attempt
+        also lands in the per-op latency histogram and each absorbed fault
+        books its backoff into the counter (plus an ``objstore.retry``
+        span when tracing is on). The loop itself is ``faults.with_retries``."""
+        hists = self._h_req_seconds
+        op = self._OP_LABELS.get(fn.__name__, fn.__name__)
+        h = hists[op] if hists is not None else None
+        on_attempt = ((lambda seconds, ok: h.observe(seconds))
+                      if h is not None else None)
 
         def on_backoff(delay: float, attempt: int) -> None:
             self.retries += 1
+            if self._c_backoff is not None:
+                self._c_backoff.inc(delay)
+                tr = self._obs.tracer
+                if tr is not None:
+                    tr.record("objstore.retry", delay, client_op=op,
+                              attempt=attempt)
 
         return with_retries(fn, args, max_retries=self._max_retries,
                             backoff=self._backoff, cap=self._backoff_cap,
                             deadline=self._retry_deadline,
-                            rng=self._retry_rng, on_backoff=on_backoff)
+                            rng=self._retry_rng, on_attempt=on_attempt,
+                            on_backoff=on_backoff)
 
     @staticmethod
     def _chunk_key(epoch: int, seq: int) -> str:
@@ -599,6 +708,8 @@ class ObjectStoreBackend(PlannedChainReader):
             # surface as the truncation error class the engine documents
             raise IOError(f"container object {key} missing "
                           f"({self._desc})") from None
+        if self._h_get_bytes is not None:
+            self._h_get_bytes.observe(len(data))
         return data
 
     def _read_desc(self) -> str:
@@ -983,3 +1094,372 @@ class ObjectStoreBackend(PlannedChainReader):
                                                max(recipe))
                 if lens is not None:
                     self._recipe_lens[h] = [int(n) for n in lens]
+
+
+# registered only under the module's canonical name: run as ``python -m``
+# the module executes once more as __main__, and its __main__ block hands
+# over to the canonical module, which registers the backend exactly once
+if __name__ != "__main__":
+    register_backend("objectstore")(ObjectStoreBackend)
+
+
+_CATALOG = "catalog.json"
+_URL_SCHEME = "obj://"
+
+
+def _human(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024 or unit == "TiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{int(n)} B"
+        n /= 1024
+    return f"{n:.1f} TiB"       # pragma: no cover
+
+
+def _split_obj_url(url: str) -> tuple[Path, str | None]:
+    """``obj://ROOT`` or ``obj://ROOT/NAME`` -> (root, name|None).
+
+    Resolution: a trailing slash, an existing directory, or a path with
+    no surrounding catalog is the store *root*; a path whose parent
+    holds ``catalog.json`` is ROOT/NAME. So ``cp f.bin obj://backups``
+    names the object ``f.bin`` inside ``backups`` whether or not the
+    store exists yet, and ``obj://backups/f.bin`` picks one object of
+    an existing store."""
+    rest = url[len(_URL_SCHEME):]
+    if not rest:
+        raise SystemExit(f"bad object URL {url!r}: empty path")
+    if rest.endswith("/"):
+        return Path(rest.rstrip("/")), None
+    p = Path(rest)
+    if (p / _CATALOG).is_file() or p.is_dir():
+        return p, None
+    if (p.parent / _CATALOG).is_file():
+        return p.parent, p.name
+    return p, None              # a store root that does not exist yet
+
+
+class _CliStore:
+    """One CLI invocation's session over a store root: the catalog plus
+    a DedupStore built from the catalog's pinned config.
+
+    The catalog persists what the in-memory store cannot recover from
+    the backend alone: object names -> (stream handle, SHA-256, sizes)
+    and the exact-dedup digest table (``DedupStore.digest_seeds``), so
+    a later ``cp`` into the same root still dedups byte-identical
+    chunks across invocations. Detector *resemblance* state is not
+    persisted — a reopened store delta-compresses only against chunks
+    it sees in its own invocation (documented limitation, §11.6).
+    The store runs on ``device``: the card unless the caller asks for
+    ``"cpu"``; the catalog and the object tree do not depend on it."""
+
+    def __init__(self, root: Path, detector: str = "finesse",
+                 chunk_size: int | None = None,
+                 create: bool = False, latency: float = 0.0,
+                 verify_reads: bool = False, device: str = "cuda") -> None:
+        # local import: config imports the store; keeping it out of
+        # module scope keeps backend-only users import-light
+        from repro_torch.api.config import DedupConfig, build_store
+        self.root = Path(root)
+        self._cat_path = self.root / _CATALOG
+        if self._cat_path.is_file():
+            self.cat = json.loads(self._cat_path.read_text())
+        elif create:
+            self.root.mkdir(parents=True, exist_ok=True)
+            chunker_args = ({"avg_size": int(chunk_size)}
+                            if chunk_size else {})
+            self.cat = {"config": {"detector": detector,
+                                   "chunker": "fastcdc",
+                                   "chunker_args": chunker_args,
+                                   "backend": "objectstore",
+                                   "backend_args": {"path": "objects"}},
+                        "files": {}, "digests": {}}
+        else:
+            raise SystemExit(f"no object store at {self.root} "
+                             f"(missing {_CATALOG})")
+        cfg_dict = json.loads(json.dumps(self.cat["config"]))  # deep copy
+        args = cfg_dict.setdefault("backend_args", {})
+        # the catalog stores the object root relative to itself so the
+        # whole store directory stays relocatable
+        args["path"] = str(self.root / args.get("path", "objects"))
+        if latency:
+            args["latency"] = latency
+        if verify_reads:
+            cfg_dict["verify_reads"] = True
+        self.cfg = DedupConfig.from_dict(cfg_dict)
+        self.store = build_store(self.cfg, device=device)
+        self._fitted = False
+        seeds = {bytes.fromhex(k): int(v)
+                 for k, v in self.cat.get("digests", {}).items()}
+        if seeds:
+            self.store.seed_digests(seeds)
+
+    @property
+    def files(self) -> dict:
+        return self.cat["files"]
+
+    def ingest(self, src: Path, name: str | None) -> tuple[str, dict]:
+        data = src.read_bytes()
+        name = name or src.name
+        if self.cat["config"]["detector"] == "card" and not self._fitted:
+            # CARD's context model needs an offline fit; train it on the
+            # first incoming file of this invocation (§5)
+            self.store.fit([data])
+            self._fitted = True
+        old = self.files.get(name)
+        if old is not None:     # cp over an existing name replaces it
+            self.store.delete(old["handle"])
+        with self.store.open_stream() as s:
+            s.write(data)
+        rep = s.report
+        entry = {"handle": rep.handle,
+                 "sha256": hashlib.sha256(data).hexdigest(),
+                 "bytes": rep.bytes_in, "stored": rep.bytes_stored,
+                 "chunks": rep.chunks, "dup_chunks": rep.dup_chunks,
+                 "delta_chunks": rep.delta_chunks}
+        self.files[name] = entry
+        return name, entry
+
+    def save(self) -> None:
+        self.store.backend.flush()
+        self.cat["digests"] = {dig.hex(): cid for dig, cid
+                               in self.store.digest_seeds().items()}
+        tmp = self._cat_path.with_suffix(".json.tmp")
+        tmp.write_text(json.dumps(self.cat, indent=1))
+        os.replace(tmp, self._cat_path)
+
+    def close(self) -> None:
+        self.store.close()
+
+
+def _cmd_cp(args) -> int:
+    srcs, dst = list(args.src), args.dst
+    to_store = dst.startswith(_URL_SCHEME)
+    from_store = any(s.startswith(_URL_SCHEME) for s in srcs)
+    if to_store == from_store:
+        raise SystemExit("cp needs exactly one obj:// side "
+                         "(local -> store or store -> local)")
+    if to_store:
+        root, name = _split_obj_url(dst)
+        if name is not None and len(srcs) > 1:
+            raise SystemExit(f"cannot copy {len(srcs)} files onto the "
+                             f"single object name {name!r}")
+        st = _CliStore(root, detector=args.detector,
+                       chunk_size=args.chunk_size, create=True,
+                       device=args.device)
+        try:
+            for s in srcs:
+                src = Path(s)
+                n, e = st.ingest(src, name)
+                print(f"{src} -> {_URL_SCHEME}{root}/{n}  "
+                      f"{_human(e['bytes'])} logical, "
+                      f"{_human(e['stored'])} stored  "
+                      f"(dcr {e['bytes'] / max(1, e['stored']):.2f})")
+            st.save()
+        finally:
+            st.close()
+        return 0
+    if len(srcs) != 1:
+        raise SystemExit("store -> local cp takes exactly one source")
+    root, name = _split_obj_url(srcs[0])
+    if name is None:
+        raise SystemExit(f"source {srcs[0]!r} must name one object "
+                         f"({_URL_SCHEME}ROOT/NAME)")
+    st = _CliStore(root, device=args.device)
+    try:
+        entry = st.files.get(name)
+        if entry is None:
+            raise SystemExit(f"no object {name!r} in {root} "
+                             f"(see: ls {_URL_SCHEME}{root})")
+        data = st.store.restore(entry["handle"])
+        if hashlib.sha256(data).hexdigest() != entry["sha256"]:
+            raise SystemExit(f"restore of {name!r} failed its SHA-256 "
+                             "check; not writing corrupt output")
+        out = Path(args.dst)
+        if out.is_dir():
+            out = out / name
+        out.write_bytes(data)
+        print(f"{srcs[0]} -> {out}  {_human(len(data))} (sha256 ok)")
+    finally:
+        st.close()
+    return 0
+
+
+def _cmd_ls(args) -> int:
+    root, _ = _split_obj_url(args.url)
+    cat_path = root / _CATALOG
+    if not cat_path.is_file():
+        raise SystemExit(f"no object store at {root} (missing {_CATALOG})")
+    files = json.loads(cat_path.read_text())["files"]
+    print(f"{'LOGICAL':>12}  {'STORED':>12}  {'DCR':>6}  NAME")
+    tot_in = tot_st = 0
+    for name in sorted(files):
+        e = files[name]
+        tot_in += e["bytes"]
+        tot_st += e["stored"]
+        print(f"{_human(e['bytes']):>12}  {_human(e['stored']):>12}  "
+              f"{e['bytes'] / max(1, e['stored']):>6.2f}  {name}")
+    print(f"{_human(tot_in):>12}  {_human(tot_st):>12}  "
+          f"{tot_in / max(1, tot_st):>6.2f}  ({len(files)} objects)")
+    return 0
+
+
+def _cmd_stat(args) -> int:
+    root, _ = _split_obj_url(args.url)
+    cat_path = root / _CATALOG
+    if not cat_path.is_file():
+        raise SystemExit(f"no object store at {root} (missing {_CATALOG})")
+    cat = json.loads(cat_path.read_text())
+    files = cat["files"]
+    logical = sum(e["bytes"] for e in files.values())
+    # physical truth from the object tree itself, not the catalog: this
+    # is what a bucket bill would charge
+    objects = LocalObjectStore(root / cat["config"]["backend_args"]
+                               .get("path", "objects"))
+    listing = objects.list("")
+    physical = sum(size for _, size in listing)
+    chunks = sum(1 for key, _ in listing if "/chunks/" in key)
+    journals = sum(1 for key, _ in listing if "/journal/" in key)
+    print(f"store root      {root}")
+    print(f"objects (files) {len(files)}")
+    print(f"logical bytes   {logical} ({_human(logical)})")
+    print(f"physical bytes  {physical} ({_human(physical)})")
+    print(f"space saved     {100.0 * (1 - physical / max(1, logical)):.1f}%"
+          f"  (dcr {logical / max(1, physical):.2f})")
+    print(f"container objs  {chunks}")
+    print(f"journal objs    {journals}")
+    print(f"detector        {cat['config']['detector']}")
+    return 0
+
+
+def _cmd_verify(args) -> int:
+    from repro_torch.api.integrity import CorruptChunkError
+    root, name = _split_obj_url(args.url)
+    st = _CliStore(root, verify_reads=True, device=args.device)
+    failed = 0
+    try:
+        names = args.names or ([name] if name else sorted(st.files))
+        for n in names:
+            entry = st.files.get(n)
+            if entry is None:
+                print(f"FAIL  {n}  (not in catalog)")
+                failed += 1
+                continue
+            try:
+                data = st.store.restore(entry["handle"])
+            except CorruptChunkError as e:
+                # the per-record crc32c caught it before SHA could (§13.2)
+                print(f"FAIL  {n}  ({e})")
+                failed += 1
+                continue
+            ok = (len(data) == entry["bytes"] and
+                  hashlib.sha256(data).hexdigest() == entry["sha256"])
+            rep = st.store.last_restore
+            detail = (f"{_human(len(data))}, {rep.requests} reads, "
+                      f"{_human(rep.bytes_read)} fetched")
+            if ok:
+                print(f"ok    {n}  ({detail})")
+            else:
+                print(f"FAIL  {n}  (restored bytes do not match the "
+                      f"recorded SHA-256; {detail})")
+                failed += 1
+    finally:
+        st.close()
+    print(f"{len(names) - failed}/{len(names)} objects verified")
+    return 1 if failed else 0
+
+
+def _cmd_scrub(args) -> int:
+    root, _ = _split_obj_url(args.url)
+    st = _CliStore(root, device=args.device)
+    try:
+        report = st.store.scrub(repair=args.repair)
+        print(f"chunks          {report.chunks} "
+              f"({report.verified} verified, "
+              f"{report.unverifiable} unverifiable)")
+        print(f"bytes checked   {_human(report.bytes_checked)}")
+        naive = report.payload_requests_naive
+        if naive and report.payload_requests < naive:
+            saved = naive - report.payload_requests
+            print(f"GET requests    {report.payload_requests} streamed "
+                  f"(vs {naive} per-chunk: {saved} saved, "
+                  f"{100.0 * saved / naive:.0f}%)")
+        print(f"streams         {report.streams}")
+        if report.corrupt:
+            print(f"CORRUPT chunks  {list(report.corrupt)}")
+            for cid, n in sorted(report.blast_radius.items()):
+                print(f"  cid {cid}: blast radius {n} stream(s)")
+        if report.missing:
+            print(f"MISSING chunks  {list(report.missing)}")
+        if report.streams_lost:
+            print(f"streams lost    {list(report.streams_lost)}")
+        for err in report.structural_errors:
+            print(f"structural      {err}")
+        if report.repaired:
+            print(f"repaired: quarantined {len(report.quarantined)} "
+                  f"chunk(s), retired {len(report.retired_streams)} "
+                  f"stream(s)")
+            post = st.store.scrub()
+            print(f"post-repair     {'clean' if post.clean else 'DIRTY'}")
+            return 0 if post.clean else 1
+        print("clean" if report.clean else "DIRTY (rerun with --repair "
+              "to quarantine)")
+        return 0 if report.clean else 1
+    finally:
+        st.close()
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.api.objectstore",
+        description="Deduplicated object-store front door (DESIGN.md "
+                    "§11.6): copy files into a chunk-deduplicated, "
+                    "delta-compressed object tree and restore them "
+                    "SHA-verified. Store URLs look like obj://DIR or "
+                    "obj://DIR/NAME. The commands that build a store "
+                    "(cp, verify, scrub) run it on the CUDA device "
+                    "unless given --device cpu.")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    cp = sub.add_parser("cp", help="copy local files into a store, or "
+                                   "one object back out")
+    cp.add_argument("src", nargs="+",
+                    help="local file(s), or one obj://ROOT/NAME source")
+    cp.add_argument("dst", help="obj://ROOT[/NAME], or a local path")
+    cp.add_argument("--detector", default="finesse",
+                    help="resemblance detector for a NEW store "
+                         "(finesse/card/dedup-only; default finesse — "
+                         "card additionally trains its context model on "
+                         "the first file)")
+    cp.add_argument("--chunk-size", type=int, default=None,
+                    help="average CDC chunk size for a NEW store (bytes)")
+    ls = sub.add_parser("ls", help="list objects: logical vs stored "
+                                   "bytes and per-file DCR")
+    ls.add_argument("url", help="obj://ROOT")
+    st = sub.add_parser("stat", help="whole-store accounting (logical "
+                                     "vs physical bytes, object counts)")
+    st.add_argument("url", help="obj://ROOT")
+    vf = sub.add_parser("verify", help="restore object(s) with verified "
+                                       "reads (per-chunk crc32c) and "
+                                       "check SHA-256 against the catalog")
+    vf.add_argument("url", help="obj://ROOT or obj://ROOT/NAME")
+    vf.add_argument("names", nargs="*",
+                    help="object names (default: every object)")
+    sc = sub.add_parser("scrub", help="fsck the store: verify every "
+                                      "record checksum, recipe "
+                                      "reachability, refcounts; exit 1 "
+                                      "when dirty")
+    sc.add_argument("url", help="obj://ROOT")
+    sc.add_argument("--repair", action="store_true",
+                    help="quarantine corrupt chunks and retire dependent "
+                         "streams (exit reflects the post-repair scrub)")
+    for p in (cp, vf, sc):
+        p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="where the store runs (default: the CUDA "
+                            "device; a missing one raises)")
+    args = ap.parse_args(argv)
+    return {"cp": _cmd_cp, "ls": _cmd_ls, "stat": _cmd_stat,
+            "verify": _cmd_verify, "scrub": _cmd_scrub}[args.cmd](args)
+
+
+if __name__ == "__main__":      # pragma: no cover - thin; logic is main()
+    # defer to the canonical module so backends register exactly once
+    from repro_torch.api import objectstore as _canonical
+    sys.exit(_canonical.main(sys.argv[1:]))

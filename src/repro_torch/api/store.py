@@ -1,6 +1,6 @@
 """Session-oriented dedup + delta-compression store (port of
-``repro.api.store``: ingest, the restore read path, the lifecycle lock,
-reclamation, scrub and the digest-table seam; without observability).
+``repro.api.store``, whole: ingest, the restore read path, the lifecycle
+lock, reclamation, scrub, the digest-table seam and observability).
 
     session = store.open_stream()
     session.write(part1); session.write(part2)   # stage bytes
@@ -31,6 +31,13 @@ on open, so a reopened store can delete and compact streams it did not
 ingest. Restores and commits take the shared side of the lifecycle lock
 (commits are also serialised among themselves), the lifecycle operations
 and ``close`` the exclusive side.
+
+Every store owns an ``Observability`` (``store.observe``, registry at
+``store.metrics()``; a tracer when ``trace_path`` / ``trace_ring_events``
+is set): commits, restores by surface, lock waits, reclamation and scrub
+record into it under the reference's metric names, and the backend binds
+its read-engine views to it. Stage seconds are the ones the commit
+measures, after synchronising the card.
 """
 from __future__ import annotations
 
@@ -121,6 +128,8 @@ class DedupStore:
                  chunker_cfg: chunking.ChunkerConfig | None = None,
                  backend: containers.ContainerBackend | None = None,
                  policy: Any | None = None,
+                 trace_path: str | None = None,
+                 trace_ring_events: int | None = None,
                  device: str | torch.device | None = None):
         self.device = ops.resolve_device(device)
         det_device = getattr(detector, "device", None)
@@ -149,7 +158,10 @@ class DedupStore:
         # delete / collect / compact / scrub / close the exclusive side;
         # commits are also serialised against each other. restore_iter's
         # next-batch fetches run on the prefetch pool, created on first use.
-        self._lifecycle_lock = RWLock()
+        # The registry comes first: the lock's wait observer and the
+        # backend binding below record into it.
+        self._init_observability(trace_path, trace_ring_events)
+        self._lifecycle_lock = RWLock(observer=self._observe_lock_wait)
         self._commit_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self._prefetch: ThreadPoolExecutor | None = None
@@ -163,7 +175,121 @@ class DedupStore:
         # per-thread backend telemetry (None -> lifetime-attribute fallback)
         self._io_counters = getattr(self.backend, "io_counters", None)
         self._fold_io = getattr(self.backend, "fold_io_counters", None)
+        # the backend's own counters become derived views of the registry
+        bind = getattr(self.backend, "bind_observability", None)
+        if bind is not None:
+            bind(self.observe)
         self._refresh_lifecycle_stats()
+
+    def _init_observability(self, trace_path: str | None,
+                            trace_ring_events: int | None) -> None:
+        # imported here, as the reference does, so that ``python -m
+        # repro_torch.api.observe`` finds its module not yet imported
+        from repro_torch.api import observe as om
+        self.observe = om.Observability(
+            trace_path=trace_path, trace_ring_events=trace_ring_events)
+        m = self.observe.metrics
+        # native instruments, created up front so every family is in the
+        # exposition from the first snapshot, zeros included
+        self._c_ingest_commits = m.counter(
+            "repro_ingest_commits_total", "Committed stream sessions")
+        self._c_ingest_bytes = {
+            d: m.counter("repro_ingest_bytes_total",
+                         "Stream bytes in vs. container bytes stored",
+                         labels={"dir": d}) for d in ("in", "stored")}
+        self._c_ingest_chunks = {
+            k: m.counter("repro_ingest_chunks_total",
+                         "Chunk dispositions at commit (DESIGN.md §2.2)",
+                         labels={"kind": k})
+            for k in ("dup", "delta", "raw")}
+        self._h_ingest_stage = {
+            s: m.histogram("repro_ingest_stage_seconds",
+                           "Per-commit ingest phase timings (§8)",
+                           labels={"stage": s}, bounds=om.SECONDS_BUCKETS)
+            for s in ("chunk", "extract", "score", "observe", "delta", "store")}
+        self._c_restore_ops = {
+            s: m.counter("repro_restore_ops_total",
+                         "Restore calls by serving surface (§9)",
+                         labels={"surface": s})
+            for s in ("full", "iter", "range")}
+        self._c_restore_bytes = {
+            d: m.counter("repro_restore_bytes_total",
+                         "Bytes served vs. physical payload bytes read",
+                         labels={"dir": d}) for d in ("out", "read")}
+        self._h_restore_stage = {
+            s: m.histogram("repro_restore_stage_seconds",
+                           "Per-restore wall/read/decode timings (§9)",
+                           labels={"stage": s}, bounds=om.SECONDS_BUCKETS)
+            for s in ("total", "read", "decode")}
+        self._h_restore_requests = m.histogram(
+            "repro_restore_requests",
+            "Physical payload reads (preads / ranged GETs) per restore",
+            bounds=om.COUNT_BUCKETS)
+        self._h_lock_wait = {
+            s: m.histogram("repro_lock_wait_seconds",
+                           "RWLock acquire wait time — the §10 "
+                           "lock-contention signal",
+                           labels={"lock": "lifecycle", "side": s},
+                           bounds=om.SECONDS_BUCKETS)
+            for s in ("read", "write")}
+        # lifecycle gauges: derived views over StoreStats, copied in at
+        # snapshot time
+        g_bytes = {k: m.gauge("repro_store_bytes",
+                              "Store accounting (live/dead per §7.2)",
+                              labels={"kind": k})
+                   for k in ("in", "stored", "live", "dead", "reclaimed")}
+        g_dcr = m.gauge("repro_store_dcr",
+                        "Lifetime data compression ratio (bytes_in / "
+                        "bytes_stored)")
+        g_streams = m.gauge("repro_store_streams", "Committed streams")
+
+        def _export_store_views() -> None:
+            with self._stats_lock:
+                s = self.stats
+                vals = {"in": s.bytes_in, "stored": s.bytes_stored,
+                        "live": s.live_bytes, "dead": s.dead_bytes,
+                        "reclaimed": s.reclaimed_bytes}
+                dcr = s.dcr
+                streams = len(self.reports)
+            for k, v in vals.items():
+                g_bytes[k].set(v)
+            g_dcr.set(dcr)
+            g_streams.set(streams)
+
+        m.register_callback(_export_store_views)
+
+    def _observe_lock_wait(self, side: str, seconds: float) -> None:
+        self._h_lock_wait[side].observe(seconds)
+
+    def metrics(self):
+        """The store's ``MetricsRegistry`` (``.to_prometheus()``,
+        ``.to_json()``, ``.snapshot()``); also ``store.observe.metrics``."""
+        return self.observe.metrics
+
+    def cache_stats(self) -> dict:
+        """Lifetime cache-hierarchy signals as one flat dict, read off the
+        backend: the decode cache's policy name, ghost hits and evictions,
+        the cold-decode singleflight waits and collapses, the decode
+        count, and the disk tier's tallies where one is configured.
+        Backends without the read engine (memory) report zeros."""
+        b = self.backend
+        cache = getattr(b, "_cache", None)
+        out = {
+            "policy": getattr(cache, "policy_name", None),
+            "ghost_hits": getattr(cache, "ghost_hits", 0),
+            "evictions": getattr(cache, "evictions", 0),
+            "singleflight_waits": getattr(b, "_sf_waits", 0),
+            "singleflight_collapsed": getattr(b, "_sf_collapsed", 0),
+            "decoded_chunks": getattr(b, "decoded_chunks", 0),
+        }
+        tier = getattr(b, "_tier", None)
+        out["tier"] = None if tier is None else {
+            "bytes": tier.bytes, "entries": len(tier),
+            "hits": tier.hits, "misses": tier.misses,
+            "bytes_served": tier.bytes_served,
+            "bytes_filled": tier.bytes_filled, "dropped": tier.dropped,
+        }
+        return out
 
     def _clock(self) -> float:
         # stage timings end on the device: wait for queued kernels first
@@ -340,7 +466,36 @@ class DedupStore:
             self.reports.append(report)
             self.stats.absorb(report)
             self._refresh_lifecycle_stats()
+        self._observe_ingest(report)
         return report
+
+    def _observe_ingest(self, r: IngestReport) -> None:
+        """Record one commit into the registry (and the ring, when
+        tracing): the stage seconds the report already measured, no new
+        timers on the ingest path."""
+        self._c_ingest_commits.inc()
+        self._c_ingest_bytes["in"].inc(r.bytes_in)
+        self._c_ingest_bytes["stored"].inc(r.bytes_stored)
+        self._c_ingest_chunks["dup"].inc(r.dup_chunks)
+        self._c_ingest_chunks["delta"].inc(r.delta_chunks)
+        self._c_ingest_chunks["raw"].inc(r.raw_chunks)
+        stages = (("chunk", r.chunk_seconds), ("extract", r.extract_seconds),
+                  ("score", r.score_seconds), ("observe", r.observe_seconds),
+                  ("delta", r.delta_seconds), ("store", r.store_seconds))
+        for stage, seconds in stages:
+            self._h_ingest_stage[stage].observe(seconds)
+        tr = self.observe.tracer
+        if tr is not None:
+            total = sum(s for _, s in stages)
+            pid = tr.record("ingest", total, handle=r.handle,
+                            bytes_in=r.bytes_in, bytes_stored=r.bytes_stored,
+                            chunks=r.chunks, dup_chunks=r.dup_chunks,
+                            delta_chunks=r.delta_chunks,
+                            dcr=round(r.dcr, 4))
+            t0 = time.time() - total
+            for stage, seconds in stages:
+                tr.record("ingest." + stage, seconds, t0=t0, parent=pid)
+                t0 += seconds
 
     # --- serving path (api/restore.py) ---------------------------------------
 
@@ -353,7 +508,8 @@ class DedupStore:
         t0 = time.perf_counter()
         data, d = self._fetch_counted(recipe)
         out = b"".join(data[cid] for cid in recipe)
-        self._note_restore(handle, len(out), len(recipe), time.perf_counter() - t0, d)
+        self._note_restore(handle, len(out), len(recipe), time.perf_counter() - t0, d,
+                           surface="full")
         return out
 
     def restore_iter(self, handle: int, batch_chunks: int = 256):
@@ -389,7 +545,8 @@ class DedupStore:
             finally:
                 if fut is not None:     # abandoned mid-stream
                     fut.cancel()
-            self._note_restore(handle, total, len(recipe), time.perf_counter() - t0, acc)
+            self._note_restore(handle, total, len(recipe), time.perf_counter() - t0, acc,
+                               surface="iter")
 
         return gen()
 
@@ -403,14 +560,16 @@ class DedupStore:
         acc = zero_deltas()
         first, last, skip = self._layout(handle, recipe, acc).chunk_window(offset, length)
         if last < first:
-            self._note_restore(handle, 0, 0, time.perf_counter() - t0, acc)
+            self._note_restore(handle, 0, 0, time.perf_counter() - t0, acc,
+                               surface="range")
             return b""
         part = recipe[first:last + 1]
         data, d = self._fetch_counted(part)
         accumulate(acc, d)
         blob = b"".join(data[cid] for cid in part)
         out = blob[skip:skip + min(length, len(blob) - skip)]
-        self._note_restore(handle, len(out), len(part), time.perf_counter() - t0, acc)
+        self._note_restore(handle, len(out), len(part), time.perf_counter() - t0, acc,
+                           surface="range")
         return out
 
     def stream_length(self, handle: int) -> int:
@@ -487,13 +646,16 @@ class DedupStore:
 
     def _prefetch_fetch(self, cids: Sequence[int]) -> tuple[dict, list]:
         """``_fetch_counted`` as a prefetch-pool task: folds the pool
-        thread's telemetry record when done (pool threads outlive the
-        task, so lifetime totals must not wait for thread exit)."""
+        thread's telemetry record and metric shard when done (pool threads
+        outlive the task, so lifetime totals must not wait for thread
+        exit). The fold comes after the counter snapshot pair, so the
+        per-call deltas are unaffected."""
         try:
             return self._fetch_counted(cids)
         finally:
             if self._fold_io is not None:
                 self._fold_io()
+            self.observe.metrics.fold_current()
 
     def _prefetch_pool(self) -> ThreadPoolExecutor:
         pool = self._prefetch
@@ -552,7 +714,7 @@ class DedupStore:
                 getattr(b, "read_requests", 0))
 
     def _note_restore(self, handle: int, bytes_out: int, chunks: int,
-                      seconds: float, d: Sequence) -> None:
+                      seconds: float, d: Sequence, surface: str = "full") -> None:
         report = RestoreReport(
             handle=handle, bytes_out=bytes_out, chunks=chunks, seconds=seconds,
             read_seconds=d[0], decode_seconds=d[1], bytes_read=int(d[2]),
@@ -561,6 +723,33 @@ class DedupStore:
         with self._stats_lock:
             self.last_restore = report
             self.stats.absorb_restore(report)
+        self._c_restore_ops[surface].inc()
+        self._c_restore_bytes["out"].inc(report.bytes_out)
+        self._c_restore_bytes["read"].inc(report.bytes_read)
+        self._h_restore_stage["total"].observe(seconds)
+        self._h_restore_stage["read"].observe(report.read_seconds)
+        self._h_restore_stage["decode"].observe(report.decode_seconds)
+        self._h_restore_requests.observe(report.requests)
+        tr = self.observe.tracer
+        if tr is not None:
+            hits, misses = report.cache_hits, report.cache_misses
+            pid = tr.record(
+                "restore", seconds, surface=surface, handle=handle,
+                bytes_out=report.bytes_out, bytes_read=report.bytes_read,
+                requests=report.requests, cache_hits=hits,
+                cache_misses=misses,
+                hit_ratio=round(hits / max(1, hits + misses), 4))
+            t0 = time.time() - seconds
+            tr.record("restore.plan", max(
+                0.0, seconds - report.read_seconds - report.decode_seconds),
+                t0=t0, parent=pid, chunks=chunks)
+            tr.record("restore.read", report.read_seconds, t0=t0,
+                      parent=pid, bytes_read=report.bytes_read,
+                      requests=report.requests)
+            tr.record("restore.decode", report.decode_seconds, t0=t0,
+                      parent=pid)
+            tr.record("restore.prefetch", 0.0, t0=t0, parent=pid,
+                      prefetch_bytes=report.prefetch_bytes)
 
     # --- space reclamation (api/lifecycle.py) --------------------------------
 
@@ -655,3 +844,4 @@ class DedupStore:
         with self._lifecycle_lock.write():
             self._backend_closed = True
             self.backend.close()
+        self.observe.close()    # flush and close the JSONL trace sink

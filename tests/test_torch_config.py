@@ -2,8 +2,10 @@
 ``api.registry``) against the JAX package's ``repro.api``: the same
 config dict gives the same validation, the same round trip and, through
 ``build_store``, the same verdicts, container records, per-stream counts
-and DCR for every ported detector. Knobs whose component is not ported
-raise ``NotImplementedError``; nothing is silently ignored.
+and DCR for every ported detector. The trace and server knobs build what
+the reference's build (a tracer, a ``DedupServer``); the one knob whose
+component is not ported raises ``NotImplementedError``; nothing is
+silently ignored.
 
 Test-only registrations go through ``monkeypatch`` on the port's own
 tables (undone at teardown); nothing here registers into the reference's
@@ -208,9 +210,10 @@ def test_api_exports_are_reference_names():
     """``repro_torch.api`` re-exports what is ported under the reference's
     names, and only names the reference's ``repro.api`` exports too."""
     from repro_torch import api
-    mine = {n for n in vars(api) if not n.startswith("_")} - {
+    mine = ({n for n in vars(api) if not n.startswith("_")} | set(api._LAZY_EXPORTS)) - {
         "types", "restore", "concurrency", "detect", "integrity", "faults", "containers",
-        "objectstore", "store", "registry", "config", "lifecycle", "refcount"}  # submodules
+        "objectstore", "store", "registry", "config", "lifecycle", "refcount", "observe",
+        "serve"}  # submodules
     missing = [n for n in sorted(mine) if not hasattr(ref_api, n)]
     assert not missing, f"exported by the port but not by the reference: {missing}"
     for name in ("build_store", "DedupConfig", "DedupStore", "chunk_with", "FileBackend",
@@ -219,18 +222,16 @@ def test_api_exports_are_reference_names():
                  "TransientError", "DeadlineExceededError", "RestoreReport", "RWLock",
                  "LockTimeout", "RefcountTable", "CollectReport", "CompactionRun",
                  "ReclamationPolicy", "EagerPolicy", "ThresholdPolicy", "NeverPolicy",
-                 "build_policy", "ScrubReport"):
+                 "build_policy", "ScrubReport", "MetricsRegistry", "Observability", "Tracer",
+                 "parse_prometheus_text", "CircuitBreaker", "CircuitOpenError",
+                 "DedupServer", "OverloadError", "QuotaExceededError", "RequestRejected",
+                 "TenantConfig", "build_server"):
         assert name in mine and getattr(api, name).__module__.startswith("repro_torch.api")
 
 
 # --- what is not ported raises ---------------------------------------------------
 
 UNPORTED = [
-    ({"trace_path": "t.jsonl"}, "Queue 1 item 4"),
-    ({"trace_ring_events": 0}, "Queue 1 item 4"),
-    ({"server_workers": 2}, "Queue 1 item 4"),
-    ({"server_args": {"workers": 2}}, "Queue 1 item 4"),
-    ({"tenant_args": {"quota_bytes": 1}}, "Queue 1 item 4"),
     ({"detector_args": {**CARD_ARGS, "fused": False}}, "Queue 1 item 5"),
 ]
 
@@ -241,6 +242,67 @@ def test_unported_knob_raises(extra, item):
     cfg = config.DedupConfig.from_dict({"detector": "card", **extra})
     with pytest.raises(NotImplementedError, match=item):
         config.build_store(cfg, device="cpu")
+
+
+# the trace and server knobs, each as the reference builds it: (knob dict,
+# what to compare)
+OBSERVE_SERVE_KNOBS = [
+    ({"trace_path": "t.jsonl"}, "tracer"),
+    ({"trace_ring_events": 16}, "tracer"),
+    ({"server_workers": 2}, "server"),
+    ({"server_args": {"workers": 2}}, "server"),
+    ({"tenant_args": {"quota_bytes": 1}}, "server"),
+]
+
+
+def _knob_dict(extra: dict, tmp_path, side: str) -> dict:
+    d = {**DICTS["dedup-only"], **extra}
+    if "trace_path" in d:
+        d["trace_path"] = str(tmp_path / f"{side}-{d['trace_path']}")
+    return d
+
+
+@pytest.mark.parametrize("extra,what", OBSERVE_SERVE_KNOBS,
+                         ids=lambda x: "-".join(x) if isinstance(x, dict) else None)
+def test_observe_and_serve_knobs_build_as_the_reference(tmp_path, extra, what):
+    """Each trace / server knob builds what the reference's builds: a tracer
+    whose ring and sink record the same spans for one ingest, or a server
+    with the same workers and default tenant limits, which sheds alike."""
+    data = _versions()[0]
+    mine_d, ref_d = _knob_dict(extra, tmp_path, "port"), _knob_dict(extra, tmp_path, "ref")
+    if what == "tracer":
+        store = config.build_store(config.DedupConfig.from_dict(mine_d), device="cpu")
+        ref = ref_api.build_store(ref_api.DedupConfig.from_dict(ref_d))
+        mine_tr, ref_tr = store.observe.tracer, ref.observe.tracer
+        assert mine_tr is not None and ref_tr is not None
+        assert mine_tr.ring_events == ref_tr.ring_events
+        store.ingest(data)
+        ref.ingest(data)
+        assert mine_tr.ops() == ref_tr.ops() and mine_tr.ops()["ingest"] == 1
+        store.close()
+        ref.close()
+        if "trace_path" in extra:
+            lines = [(tmp_path / f"{side}-t.jsonl").read_text().splitlines()
+                     for side in ("port", "ref")]
+            assert len(lines[0]) == len(lines[1]) == len(mine_tr.events()) > 0
+        return
+    srv = config.build_server(config.DedupConfig.from_dict(mine_d), device="cpu")
+    ref_srv = ref_api.build_server(ref_api.DedupConfig.from_dict(ref_d))
+    try:
+        assert srv._pool._max_workers == ref_srv._pool._max_workers
+        assert dataclasses.asdict(srv._default_cfg) == dataclasses.asdict(ref_srv._default_cfg)
+        outcomes = []
+        for server in (srv, ref_srv):
+            try:
+                outcomes.append(server.ingest("t", data).bytes_stored)
+            except Exception as e:         # noqa: BLE001 - compared across packages
+                outcomes.append(type(e).__name__)
+        assert outcomes[0] == outcomes[1]
+        assert (outcomes[0] == "QuotaExceededError") == ("tenant_args" in extra)
+        assert srv.tenant_stats("t") == ref_srv.tenant_stats("t")
+    finally:
+        srv.close(close_store=True)
+        ref_srv.close(close_store=True)
 
 
 # StoreStats the policies are asked about: (live_bytes, dead_bytes)
