@@ -17,7 +17,8 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               sizes across a thread's run, a block and the halo, timed at
               the main path's scan length and at the 64 MiB bucket, with
               Rabin; kernel B (features with the mean-normalise epilogue
-              fused) at [4096, 61], M 64 and on a real sql_dump extract,
+              fused, and with normalize=False, which stops after the
+              mean) at [4096, 61], M 64 and on a real sql_dump extract,
               its quotients bit for bit against x / norm, timed beside
               the old torch epilogue and the launch floor; kernel C's
               argmax exact at B 4097, D 16 / 50 / 64 / 256, its ties and
@@ -106,6 +107,30 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               same steps). One JSON line: per-tenant ingest MB/s, stage
               sums from the registry, concurrent restore MB/s, sheds, CLI
               seconds by subcommand, launches, the phase's seconds;
+  4f. features  CARD with each other feature path and index, from dicts
+              on the card over phase 4's data: the per-chunk path
+              ("fused": False), the poly sub-chunk LSH (feat "lsh":
+              "poly") and the banded index ("index": "banded-lsh", 16
+              bands of 6 bits): DCR and counts pinned to the JAX
+              package's (scripts/feature_paths_dcr.py; the unfused store's
+              also to phase 4's), every restore SHA-256-identical, A, B
+              and C launched (C never beside the banded index); one JSON
+              line a workload with ingest MB/s and extract seconds, fused
+              (phase 4) against unfused. Then ("kernel" line
+              "gear_packed") the per-chunk path's gear route on sql_dump
+              version 1 given as chunks without a scan: kernel A over the
+              chunks packed end to end, bit-exact against the plain
+              version on every chunk past its 31-byte warm-up, its
+              features within 3e-7 of the fused path's, timed;
+  4g. checkpoint  DedupCheckpointStore on the card: bench_ckpt_store's
+              tree (4 MiB a step, from numpy) over 4 drifted steps at
+              sigma 1e-3, 1e-4 and 1e-5, byte planes on and off, and one
+              store at 16x the leaf sizes (64 MiB a step, sigma 1e-4):
+              DCR and counts pinned to scripts/ckpt_dcr.py, every step
+              restored onto the card value-exact, A and B launched in
+              each store and C in the 64 MiB one; then a CUDA state dict
+              through the plain checkpoint store (save, a .tmp directory
+              latest_step must not report, restore onto the card);
   5. fit      the card's context-model fit against a CPU fit from the
               same init and batch stream (per-step loss, transform);
   6. parity   the port on the card and on the CPU over kernel-workload
@@ -350,18 +375,24 @@ def check_embed(dev, gen, real: tuple[torch.Tensor, torch.Tensor]) -> dict:
                         device=dev, generator=gen)
     mask = torch.rand(rows, s_len, device=dev, generator=gen) < 0.8
     mask[:4] = False                               # all-masked rows give 0
-    plain = lambda i, mk: shingle_embed.mean_normalize(
-        shingle_embed.shingle_embed_sum_plain(i, mk, a, b), mk)
-    errs = []
+    plain = lambda i, mk, normalize=True: shingle_embed.mean_normalize(
+        shingle_embed.shingle_embed_sum_plain(i, mk, a, b), mk, normalize)
+    errs, unnormalized_errs = [], []
     for name, (i, mk) in (("random", (ids, mask)), ("sql_dump extract", real)):
-        got, want = ops.shingle_embed(i, mk, a, b), plain(i, mk)
-        errs.append(float((got - want).abs().max()))
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
-            fail(f"shingle_embed != plain on {name} input (max abs err {errs[-1]})")
-        if name == "random" and float(got[:4].abs().max()) != 0.0:
-            fail("shingle_embed: an all-masked row is not 0")
+        for normalize, out in ((True, errs), (False, unnormalized_errs)):
+            got = ops.shingle_embed(i, mk, a, b, normalize=normalize)
+            want = plain(i, mk, normalize)
+            out.append(float((got - want).abs().max()))
+            if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+                fail(f"shingle_embed (normalize={normalize}) != plain on {name} input "
+                     f"(max abs err {out[-1]})")
+            if name == "random" and float(got[:4].abs().max()) != 0.0:
+                fail("shingle_embed: an all-masked row is not 0")
     pairs = check_quotient(dev, gen, ids, a, b)
     ms = time_ms(lambda: shingle_embed.shingle_embed_cuda(ids, mask, a, b), reps=50)
+    unnormalized_ms = time_ms(
+        lambda: shingle_embed.shingle_embed_cuda(ids, mask, a, b, normalize=False), reps=50)
+    unnormalized_plain_ms = time_ms(lambda: plain(ids, mask, False))
     real_ms = time_ms(lambda: shingle_embed.shingle_embed_cuda(*real, a, b), reps=50)
     plain_ms = time_ms(lambda: plain(ids, mask))
     total = shingle_embed.shingle_embed_sum_plain(ids, mask, a, b)
@@ -371,17 +402,24 @@ def check_embed(dev, gen, real: tuple[torch.Tensor, torch.Tensor]) -> dict:
     valid = int(mask.sum())
     b_ms, b_by = bound(5 * rows * s_len + 8 * FEAT.m + 4 * rows * FEAT.m,
                        5.0 * valid * FEAT.m + 4.0 * rows * FEAT.m)
+    # normalize=False: the same sums and mean, no norm (3 fewer operations
+    # an output)
+    un_ms, un_by = bound(5 * rows * s_len + 8 * FEAT.m + 4 * rows * FEAT.m,
+                         5.0 * valid * FEAT.m + 1.0 * rows * FEAT.m)
+    unnormalized = dict(max_abs_err=max(unnormalized_errs), kernel_ms=unnormalized_ms,
+                        plain_ms=unnormalized_plain_ms, bound_ms=un_ms, bound_by=un_by)
     real_shape = [real[0].shape[0], real[0].shape[1], FEAT.m]
     emit("kernel", name="shingle_embed", shape=[rows, s_len, FEAT.m],
          max_abs_err=errs[0], tol=1e-5, kernel_ms=ms, plain_ms=plain_ms,
          old_epilogue_ms=epilogue_ms, launch_floor_ms=floor_ms, bound_ms=b_ms,
          bound_by=b_by, library_ms=None, real_shape=real_shape,
          real_unmasked=int(real[1].sum()), real_max_abs_err=errs[1], real_kernel_ms=real_ms,
-         quotient_pairs=pairs, quotient_bit_exact=True)
-    return dict(name="shingle_embed", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+         quotient_pairs=pairs, quotient_bit_exact=True, unnormalized=unnormalized)
+    return dict(name="shingle_embed", max_abs_err=max(errs + unnormalized_errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 shape=[rows, s_len, FEAT.m], old_epilogue_ms=epilogue_ms,
-                launch_floor_ms=floor_ms, real_shape=real_shape, real_kernel_ms=real_ms)
+                launch_floor_ms=floor_ms, real_shape=real_shape, real_kernel_ms=real_ms,
+                unnormalized=unnormalized)
 
 
 def library_topk(q, index, block=1 << 18):
@@ -630,8 +668,10 @@ def check_attn(dev, gen, t_main: int) -> dict:
 # decimals. The port's context model starts from the reference's own
 # init at these widths (core/fixtures), so the card must give the same.
 REFERENCE_DCR = {"sql_dump": 4.129564, "vmdk": 5.681883}
-# (chunks, dup, delta, raw) of each workload's phase-4 store, for phase 4c
+# (chunks, dup, delta, raw) of each workload's phase-4 store, for phases
+# 4c and 4f, and its extract seconds (the fused path), for phase 4f
 MAIN_COUNTS: dict[str, tuple[int, int, int, int]] = {}
+MAIN_EXTRACT_S: dict[str, float] = {}
 
 
 def card_detector(device) -> pipeline.CARDDetector:
@@ -671,6 +711,7 @@ def main_path(name: str, versions: list[bytes]) -> dict[str, int]:
          init_source=store.detector.model.init_source, restored="sha256-identical",
          launches=per_kernel, wrapper_launches=launches)
     MAIN_COUNTS[name] = (st.chunks, st.dup_chunks, st.delta_chunks, st.raw_chunks)
+    MAIN_EXTRACT_S[name] = st.extract_seconds
     if round(st.dcr, 6) != REFERENCE_DCR[name]:
         fail(f"{name}: DCR {st.dcr} is not the reference's {REFERENCE_DCR[name]}")
     if min(per_kernel.values()) <= 0:
@@ -1244,32 +1285,20 @@ def depth_recount(backend) -> dict[int, int]:
     return hist
 
 
-def check_lifecycle(what: str, pinned: dict, recount: dict, want: dict) -> dict:
-    """Every pinned number must equal the JAX package's. The live chain-depth
-    histogram (CollectReport and StoreStats) must equal a plain recount on
-    the card's own records and hold the reference's number of live
-    chunks; its split by depth follows the ingest's verdicts, which on
-    the card may take the other side of a near-tie (ROADMAP Queue 3), so
-    it is reported against the reference's, by depth. Returns that
-    difference (empty where it is the reference's)."""
+def check_lifecycle(what: str, pinned: dict, recount: dict, want: dict) -> None:
+    """Every pinned number must equal the JAX package's, the live
+    chain-depth histograms (CollectReport and StoreStats) included, and
+    that histogram must equal a plain recount on the card's own records."""
     got = json.loads(json.dumps(pinned))
     want = json.loads(json.dumps(want))
-    hists = {k: (got[k].pop("chain_depth_hist"), want[k].pop("chain_depth_hist"))
-             for k in ("collect", "stats")}
     if got != want:
         diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
                 if got.get(k) != want.get(k)}
         fail(f"{what}: not the reference's numbers: {diff}")
     recount = json.loads(json.dumps(recount))
-    if hists["collect"][0] != recount:
-        fail(f"{what}: the depth histogram {hists['collect'][0]} is not the recount {recount}")
-    for k, (g, w) in hists.items():
-        if sum(g.values()) != sum(w.values()):
-            fail(f"{what}: {k} depth histogram counts {sum(g.values())} live chunks, "
-                 f"the reference's {sum(w.values())}")
-    g, w = hists["collect"]
-    return {d: g.get(d, 0) - w.get(d, 0) for d in sorted(set(g) | set(w), key=int)
-            if g.get(d, 0) != w.get(d, 0)}
+    if got["collect"]["chain_depth_hist"] != recount:
+        fail(f"{what}: the depth histogram {got['collect']['chain_depth_hist']} is not "
+             f"the recount {recount}")
 
 
 def lifecycle_phase(dev, main_versions: dict[str, list[bytes]]) -> dict[str, int]:
@@ -1299,8 +1328,8 @@ def lifecycle_phase(dev, main_versions: dict[str, list[bytes]]) -> dict[str, int
                 f"{what} post-compaction re-ingest",
                 counts={k: marks["reingest done"][k] - marks["reingest"][k]
                         for k in marks["reingest"]})
-            hist_diff = check_lifecycle(what, pinned, measured.pop("depth_hist_recount"),
-                                        LIFECYCLE_REFERENCE[f"{name}/{backend}"])
+            check_lifecycle(what, pinned, measured.pop("depth_hist_recount"),
+                            LIFECYCLE_REFERENCE[f"{name}/{backend}"])
             for k in launches:
                 launches[k] += total_lc[k]
             c, run = pinned["collect"], pinned["compact"]
@@ -1316,7 +1345,7 @@ def lifecycle_phase(dev, main_versions: dict[str, list[bytes]]) -> dict[str, int
                                 "after": pinned["storage_after"]},
                  reingest=pinned["reingest"], seeded_ingest=pinned["seeded_ingest"],
                  seeds_admitted=pinned["seeds_admitted"], scrub=pinned["scrub"],
-                 pinned="the JAX package's", depth_hist_vs_reference=hist_diff,
+                 pinned="the JAX package's",
                  restored="sha256-identical",
                  seconds=measured, crc32c=dict(route=integrity.crc32c_route(),
                                                **integrity.CRC32C_STATS),
@@ -1827,6 +1856,316 @@ def serve_phase(dev, main_versions: dict[str, list[bytes]]) -> dict[str, int]:
     return lc
 
 
+# --- phase 4f: every CARD feature path and index on the card ------------------
+
+# Each store: phase 4's CARD widths with one knob (config dict keys of
+# "detector_args"; "feat" keys merge into FEAT's).
+FEATURE_STORES = {"unfused": {"fused": False},
+                  "poly": {"feat": {"lsh": "poly"}},
+                  "banded": {"index": "banded-lsh"}}
+# What scripts/feature_paths_dcr.py printed for each store (the JAX package
+# on a CPU, the same dicts and data): (DCR, chunks, dup, delta, raw).
+FEATURE_REFERENCE = {
+    "sql_dump": {"unfused": (4.129564, 14533, 7728, 6796, 9),
+                 "poly": (3.58046, 14533, 7728, 6795, 10),
+                 "banded": (4.127169, 14533, 7728, 6796, 9)},
+    "vmdk": {"unfused": (5.681883, 9547, 6753, 1704, 1090),
+             "poly": (5.609139, 9547, 6753, 1698, 1096),
+             "banded": (5.68022, 9547, 6753, 1704, 1090)},
+}
+
+
+def feature_dict(variant: str) -> dict:
+    knobs = dict(FEATURE_STORES[variant])
+    feat = {**dataclasses.asdict(FEAT), **knobs.pop("feat", {})}
+    return {"detector": "card",
+            "detector_args": {"feat": feat, "model": dataclasses.asdict(MODEL),
+                              "threshold": 0.3, **knobs},
+            "chunker_args": {"avg_size": CHUNKER.avg_size}}
+
+
+def packed_gear_route(dev, version: bytes) -> dict:
+    """The per-chunk path's gear route on one version given as chunks
+    without a scan: kernel A over the chunks packed end to end
+    (``features.pack_chunk_bytes``), bit-exact against the plain version
+    on the whole buffer and, for every chunk, past its 31-byte warm-up,
+    against the plain version run on that chunk alone; its sub-chunk
+    maxes equal those read from the stream scan's host copy, and the
+    extractor's features on it equal the fused path's within 3e-7
+    (tests/test_ingest_fast.py's tolerance). Launches are counted over the
+    extractor's call alone. Timed beside the plain version and the bound
+    (as kernel A's: each byte read, each hash written; 2 operations a
+    position)."""
+    chunks, scan = chunk_with(CHUNKER, version, dev)
+    data = [c.data for c in chunks]
+    offs = np.asarray([c.offset for c in chunks], np.int64)
+    packed, starts, lens = features.pack_chunk_bytes(data, dev)
+    got = ops.gear_hashes(packed)
+    if not torch.equal(got, gear_hash.gear_hashes_plain(packed)):
+        fail("gear_hashes != plain on the packed sql_dump chunks")
+    t = torch.arange(int(lens.max()), device=dev)
+    valid = t[None, :] < lens[:, None]                                 # [B, Lmax]
+    pos = (starts[:, None] + t[None, :])[valid]
+    rows = torch.zeros(valid.shape, dtype=torch.uint8, device=dev)
+    rows[valid] = packed[pos]
+    alone = hashing.to_i32_bits(hashing.gear_hashes(rows))
+    past_warmup = valid & (t[None, :] >= features._WARMUP)
+    wrong = int((got[(starts[:, None] + t[None, :])[past_warmup]] != alone[past_warmup]).sum())
+    if wrong:
+        fail(f"gear_hashes on the packed chunks differs from per-chunk hashes at {wrong} "
+             f"positions")
+    del rows, valid, pos, alone, past_warmup
+    sub_packed = features.batch_subchunk_lsh(data, FEAT, device=dev)
+    sub_scan = features.batch_subchunk_lsh(data, FEAT, scan, offs, device=dev)
+    if not torch.equal(sub_packed, sub_scan):
+        fail("packed per-chunk sub-chunk maxes differ from the scan's")
+    ext = features.FeatureExtractor(FEAT, device=dev)
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    per_chunk = ext(data)
+    torch.cuda.synchronize(dev)
+    launches = dict(ops.LAUNCHES)
+    fused = ext(data, scan, offs, lmax_floor=CHUNKER.max_size)
+    err = float((per_chunk - fused).abs().max())
+    if err > 3e-7:
+        fail(f"per-chunk features differ from the fused path's by {err}")
+    if launches["gear_hashes"] != 1 or launches["shingle_embed"] != 1:
+        fail(f"the packed per-chunk route launched {launches}, not one A and one B")
+    n = packed.shape[0]
+    ms = time_ms(lambda: ops.gear_hashes(packed))
+    plain_ms = time_ms(lambda: gear_hash.gear_hashes_plain(packed), reps=3, warmup=1)
+    b_ms, b_by = bound(n + 4 * n, 2.0 * n)
+    out = dict(n=n, chunks=len(chunks), kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, per_chunk_exact=True,
+               features_max_abs_err=err, launches={k: v for k, v in launches.items() if v})
+    emit("kernel", name="gear_packed", **out)
+    return out
+
+
+def features_phase(dev, main_versions: dict[str, list[bytes]]) -> tuple[dict, dict[str, int]]:
+    """Phase 4f: each FEATURE_STORES store, built from its dict on the
+    card, over phase 4's data: fit, ingest, SHA-256 restore, DCR and
+    counts pinned to FEATURE_REFERENCE (the unfused store's also to phase
+    4's); A, B and C launched, C never with the banded index. Launch
+    counts are reset before each store and read after it. Then the
+    packed per-chunk gear route on sql_dump version 1. Returns that
+    route's kernel line and the launches summed over the stores."""
+    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0}
+    for name, versions in main_versions.items():
+        total = sum(len(v) for v in versions)
+        rows = {}
+        t_phase = time.perf_counter()
+        for variant in FEATURE_STORES:
+            what = f"features {name} {variant}"
+            store = config.build_store(config.DedupConfig.from_dict(feature_dict(variant)),
+                                       device=dev)
+            store._clock()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            store.fit(versions[:1])
+            t1 = time.perf_counter()
+            for v in versions:
+                store.ingest(v)
+            t2 = store._clock()
+            banded = variant == "banded"
+            lc = card_launches(what, need=("gear_scan", "shingle_embed") if banded
+                               else ("gear_scan", "shingle_embed", "sim_topk"))
+            if banded and lc["sim_topk"]:
+                fail(f"{what}: kernel C launched {lc['sim_topk']} times beside the banded index")
+            for h, v in enumerate(versions):
+                if hashlib.sha256(store.restore(h)).digest() != hashlib.sha256(v).digest():
+                    fail(f"{what}: version {h} did not restore byte-identically")
+            st = store.stats
+            counts = (st.chunks, st.dup_chunks, st.delta_chunks, st.raw_chunks)
+            want_dcr, *want_counts = FEATURE_REFERENCE[name][variant]
+            if round(st.dcr, 6) != want_dcr or list(counts) != want_counts:
+                fail(f"{what}: DCR {st.dcr} and counts {counts} are not the reference's "
+                     f"{want_dcr} and {want_counts}")
+            if variant == "unfused" and (round(st.dcr, 6) != REFERENCE_DCR[name]
+                                         or counts != MAIN_COUNTS[name]):
+                fail(f"{what}: DCR {st.dcr} / counts {counts} are not phase 4's "
+                     f"{REFERENCE_DCR[name]} / {MAIN_COUNTS[name]}")
+            rows[variant] = dict(dcr=st.dcr, counts=list(counts),
+                                 ingest_mb_per_s=total / 1e6 / (t2 - t1), fit_s=t1 - t0,
+                                 extract_s=st.extract_seconds, score_s=st.score_seconds,
+                                 observe_s=st.observe_seconds, detect_s=st.detect_seconds,
+                                 launches=lc)
+            for k in launches:
+                launches[k] += lc[k]
+            del store
+        emit("features", workload=name, base_mib=BASE / 2**20, versions=len(versions),
+             bytes_in=total, stores=rows, pinned="the JAX package's",
+             restored="sha256-identical",
+             extract_s={"fused": MAIN_EXTRACT_S[name], "unfused": rows["unfused"]["extract_s"]},
+             phase_s=time.perf_counter() - t_phase)
+    return packed_gear_route(dev, main_versions["sql_dump"][1]), launches
+
+
+# --- phase 4g: the CARD checkpoint store on the card ----------------------------
+
+# bench_ckpt_store's tree (w [512, 2048] bf16, e [2048, 256] bf16, mu
+# [512, 512] f32: 4 MiB a step) with each side times `scale`, drawn from
+# numpy (bf16 leaves as their uint16 bits) so that scripts/ckpt_dcr.py
+# hands the JAX package the same arrays. Each store: (scale, drift sigma,
+# byte planes); scale 4 is 64 MiB a step.
+CKPT_STORES = tuple((1, sigma, planes) for planes in (True, False)
+                    for sigma in (1e-3, 1e-4, 1e-5)) + ((4, 1e-4, True),)
+CKPT_STEPS = 4
+# What scripts/ckpt_dcr.py printed for each store: (DCR, chunks, dup,
+# delta, raw).
+CKPT_REFERENCE: dict[str, tuple] = {
+    "x1 sigma 0.001 planes on": (1.101695, 859, 0, 92, 767),
+    "x1 sigma 0.0001 planes on": (1.378694, 871, 4, 240, 627),
+    "x1 sigma 1e-05 planes on": (1.937386, 871, 134, 299, 438),
+    "x1 sigma 0.001 planes off": (1.000109, 866, 0, 2, 864),
+    "x1 sigma 0.0001 planes off": (1.008564, 865, 0, 9, 856),
+    "x1 sigma 1e-05 planes off": (2.01897, 880, 0, 449, 431),
+    "x16 sigma 0.0001 planes on": (1.375585, 13809, 42, 3834, 9933),
+}
+
+
+def ckpt_key(scale: int, sigma: float, planes: bool) -> str:
+    return f"x{scale * scale} sigma {sigma:g} planes {'on' if planes else 'off'}"
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 (round to nearest even) as uint16 bits."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).view(
+        torch.int16).numpy().view(np.uint16)
+
+
+def ckpt_tree(scale: int, seed: int = 1) -> dict:
+    """{"params": {"w", "e"}, "mu"}: (dtype name, numpy array) leaves."""
+    rng = np.random.default_rng(seed)
+    s = scale
+    return {"params": {"w": ("bfloat16", bf16_bits(rng.standard_normal((512 * s, 2048 * s)))),
+                       "e": ("bfloat16", bf16_bits(rng.standard_normal((2048 * s, 256 * s))))},
+            "mu": ("float32", (rng.standard_normal((512 * s, 512 * s)) * 0.01).astype(np.float32))}
+
+
+def ckpt_map(tree: dict, fn) -> dict:
+    return {k: ckpt_map(v, fn) if isinstance(v, dict) else fn(*v) for k, v in tree.items()}
+
+
+def ckpt_drift(tree: dict, rng, sigma: float) -> dict:
+    """Each leaf plus N(0, sigma) noise, added in float32 and rounded once
+    to the leaf's dtype."""
+    def leaf(kind, a):
+        noise = (rng.standard_normal(a.shape) * sigma).astype(np.float32)
+        if kind == "bfloat16":
+            return kind, bf16_bits((a.astype(np.uint32) << 16).view(np.float32) + noise)
+        return kind, a + noise
+    return ckpt_map(tree, leaf)
+
+
+def ckpt_to_torch(tree: dict, device) -> dict:
+    def leaf(kind, a):
+        t = torch.from_numpy(np.array(a))
+        return (t.view(torch.int16).view(torch.bfloat16) if kind == "bfloat16" else t).to(device)
+    return ckpt_map(tree, leaf)
+
+
+def ckpt_saves(store, convert, scale: int, sigma: float) -> tuple[list[dict], float]:
+    """Save CKPT_STEPS drifted steps (numpy seed 0, tree seed 1, as
+    bench_ckpt_store); returns the numpy trees and the save seconds."""
+    rng = np.random.default_rng(0)
+    tree, history, seconds = ckpt_tree(scale), [], 0.0
+    for i in range(CKPT_STEPS):
+        tree = ckpt_drift(tree, rng, sigma)
+        converted = convert(tree)
+        t0 = time.perf_counter()
+        store.save(converted, step=i)
+        seconds += time.perf_counter() - t0
+        history.append(tree)
+    return history, seconds
+
+
+def ckpt_equal(got: dict, want: dict) -> bool:
+    """Value-exact, leaf by leaf (bf16 by bit pattern), on ``want``'s device."""
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    flat_got = [got["mu"], got["params"]["e"], got["params"]["w"]]
+    flat_want = [want["mu"], want["params"]["e"], want["params"]["w"]]
+    return all(g.device == w.device and g.dtype == w.dtype and torch.equal(bits(g), bits(w))
+               for g, w in zip(flat_got, flat_want))
+
+
+def plain_checkpoint_drill(dev) -> dict:
+    """checkpoint.store on a CUDA state dict: save, a .tmp directory left
+    as a crashed writer would, latest_step, restore onto the card."""
+    from repro_torch import checkpoint
+    model = torch.nn.Sequential(torch.nn.Linear(64, 32), torch.nn.LayerNorm(32)).to(dev)
+    state = {"model": model.state_dict(),
+             "emb": torch.randn(100, 16, device=dev).to(torch.bfloat16),
+             "step": torch.tensor(12, dtype=torch.int32, device=dev)}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        checkpoint.save(root, state, step=12)
+        os.mkdir(os.path.join(root, "step_00000013.tmp"))
+        if checkpoint.latest_step(root) != 12 or checkpoint.list_steps(root) != [12]:
+            fail(f"checkpoint: the .tmp directory was listed: {checkpoint.list_steps(root)}")
+        got = checkpoint.restore(root, state)
+        ok = all(g.device == w.device and g.dtype == w.dtype
+                 and torch.equal(g.view(torch.int16) if g.dtype == torch.bfloat16 else g,
+                                 w.view(torch.int16) if w.dtype == torch.bfloat16 else w)
+                 for g, w in zip(list(got["model"].values()) + [got["emb"], got["step"]],
+                                 list(state["model"].values()) + [state["emb"], state["step"]]))
+        if not ok:
+            fail("checkpoint: the CUDA state dict did not restore value-exact on the card")
+        return dict(leaves=len(state["model"]) + 2, latest_step=12, tmp_listed=False,
+                    restored="value-exact, on the card")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def checkpoint_phase(dev) -> dict[str, int]:
+    """Phase 4g: each CKPT_STORES store (``DedupCheckpointStore`` on the
+    card, its default CARD detector) saves CKPT_STEPS drifted steps; DCR
+    and counts pinned to CKPT_REFERENCE; every step restores onto the card
+    value-exact. Launch counts are reset before each store and read after
+    its saves; A and B must launch in each, C in the 64 MiB store (the
+    smaller stores may never pass C's 512-row gate). Then the plain store's
+    drill."""
+    from repro_torch.checkpoint import DedupCheckpointStore
+    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0}
+    rows = {}
+    t_phase = time.perf_counter()
+    for scale, sigma, planes in CKPT_STORES:
+        key = ckpt_key(scale, sigma, planes)
+        what = f"checkpoint {key}"
+        store = DedupCheckpointStore(byte_plane=planes, device=dev)
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        history, save_s = ckpt_saves(store, lambda t: ckpt_to_torch(t, dev), scale, sigma)
+        torch.cuda.synchronize(dev)
+        lc = card_launches(what, need=("gear_scan", "shingle_embed", "sim_topk") if scale > 1
+                           else ("gear_scan", "shingle_embed"))
+        like = ckpt_to_torch(ckpt_tree(scale, seed=2), dev)
+        t0 = time.perf_counter()
+        for step, tree in enumerate(history):
+            if not ckpt_equal(store.restore(like, step=step), ckpt_to_torch(tree, dev)):
+                fail(f"{what}: step {step} did not restore value-exact on the card")
+        restore_s = time.perf_counter() - t0
+        st = store.stats
+        counts = (st.chunks, st.dup_chunks, st.delta_chunks, st.raw_chunks)
+        want_dcr, *want_counts = CKPT_REFERENCE[key]
+        if round(st.dcr, 6) != want_dcr or list(counts) != want_counts:
+            fail(f"{what}: DCR {st.dcr} and counts {counts} are not the reference's "
+                 f"{want_dcr} and {want_counts}")
+        rows[key] = dict(step_bytes=st.bytes_in // CKPT_STEPS, dcr=st.dcr, counts=list(counts),
+                         save_s=save_s, save_mb_per_s=st.bytes_in / 1e6 / save_s,
+                         restore_s=restore_s, launches=lc)
+        for k in launches:
+            launches[k] += lc[k]
+        del store, history
+    if launches["sim_topk"] <= 0:
+        fail("checkpoint: kernel C never launched")
+    emit("checkpoint", steps=CKPT_STEPS, stores=rows, pinned="the JAX package's",
+         restored="value-exact, on the card", plain_store=plain_checkpoint_drill(dev),
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 # --- phases 5 and 6: the card's fit, then card / CPU parity ------------------
 
 def record_verdicts(det) -> list:
@@ -2105,6 +2444,14 @@ def main() -> int:
         launches[k] += v
     for k, v in serve_phase(dev, main_versions).items():
         launches[k] += v
+    gear_packed, feature_launches = features_phase(dev, main_versions)
+    for k, v in feature_launches.items():
+        launches[k] += v
+    launches["gear_packed"] = gear_packed["launches"]["gear_hashes"]
+    launches["gear_scan"] += launches["gear_packed"]
+    launches["shingle_embed"] += gear_packed["launches"]["shingle_embed"]
+    for k, v in checkpoint_phase(dev).items():
+        launches[k] += v
     small = workloads.make_workload(
         "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))
     parity_phase(*fit_phase(small), small)
@@ -2120,6 +2467,8 @@ def main() -> int:
         row.update(route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
                    launches=launches[row["name"]])
     rows[0]["rabin_launches"] = launches["rabin"]
+    rows[0]["gear_packed"] = gear_packed
+    rows[0]["gear_packed_launches"] = launches["gear_packed"]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

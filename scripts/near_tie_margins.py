@@ -25,9 +25,10 @@ and at one more, which tells the fit from the features:
 
 A row's verdict is the stream id of its intra-stream argmax. One JSON line
 per (workload, version) counts the new chunks whose verdict at each point
-differs from point c's; then one line per differing row gives the float64
-score margin between c's candidate and the other at each point (positive:
-c's candidate scores higher).
+differs from point c's; then one line per differing row, and per row whose
+best two candidates at point c lie within NEAR_TIE of each other, gives
+the float64 score margin between c's candidate and the other (at a near
+tie, c's runner-up) at each point (positive: c's candidate scores higher).
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ from repro_torch.data import workloads  # noqa: E402
 from repro_torch.kernels import ingest  # noqa: E402
 
 CPU = torch.device("cpu")
+NEAR_TIE = 1e-6
 
 
 def intra(feats: torch.Tensor) -> torch.Tensor:
@@ -111,8 +113,9 @@ def main() -> int:
             first: dict[bytes, int] = {}
             sid = np.asarray([first.setdefault(c.digest, i) for i, c in enumerate(chunks)])
             new = sid == np.arange(len(chunks))
-            init_card = det.extractor(scan, offs, lens, lmax_floor=det.lmax_floor)
-            init_cpu = ext_cpu(scan_c, offs, lens, lmax_floor=det.lmax_floor)
+            init_card = det.extractor.features_from_stream(scan, offs, lens,
+                                                            lmax_floor=det.lmax_floor)
+            init_cpu = ext_cpu.features_from_stream(scan_c, offs, lens, lmax_floor=det.lmax_floor)
             ids, mask = ingest.shingle_inputs(scan, offs, lens, dev, k=chip_smoke.FEAT.k,
                                               n=chip_smoke.FEAT.n, lmax_floor=det.lmax_floor)
             pts = {
@@ -129,9 +132,12 @@ def main() -> int:
                               "new": int(new.sum()),
                               "differs_from_c": {p: len(r) for p, r in differs.items()}}),
                   flush=True)
-            for i in sorted(set().union(*(r.tolist() for r in differs.values()))):
+            top2 = pts["c"].topk(2, dim=1)
+            near = rows[(top2.values[rows, 0] - top2.values[rows, 1]).numpy() < NEAR_TIE]
+            for i in sorted(set(near.tolist()).union(*(r.tolist() for r in differs.values()))):
                 jc = int(pts["c"][i].argmax())
-                for jo in sorted({int(pts[p][i].argmax()) for p in pts} - {jc}):
+                others = {int(pts[p][i].argmax()) for p in pts} - {jc}
+                for jo in sorted(others or {int(top2.indices[i, 1])}):
                     print(json.dumps({
                         "workload": name, "version": vi, "row": i,
                         "candidate_c": int(sid[jc]), "other": int(sid[jo]),

@@ -5,7 +5,7 @@ names and error messages. They are the port's own: nothing here or
 anywhere in the port registers into the reference's registry.
 
     detectors       "card", "finesse", "n-transform", "dedup-only"
-    indexes         "exact" (cosine top-1)
+    indexes         "exact" (cosine top-1), "banded-lsh" (SimHash bands)
     chunkers        "fastcdc" (a ChunkerConfig factory)
     backends        "memory", "file", "objectstore" ("s3" needs boto3 and
                     is not ported: its lookup raises a KeyError that says

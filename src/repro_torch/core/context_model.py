@@ -9,7 +9,9 @@ Word2vec-CBOW-shaped two-matrix linear network:
 
 trained as cosine + MSE regression of ``out_i`` on the target chunk's
 initial feature, with Adam (b1 0.9, b2 0.95, eps 1e-8, no weight decay —
-the update of the reference's ``optim.adamw``).
+the update of the reference's ``optim.adamw``). The fit's products, row
+sums and norms accumulate in float64 and round once to float32, so it
+ends at the same weights on the card and on the CPU.
 
 The reference draws its init from ``jax.random``, which torch cannot
 replay. At the (m, d, seed) that the port ships a fixture for
@@ -118,15 +120,26 @@ class ContextModel(nn.Module):
         self.init_source = "given"
 
     def forward(self, ctx_mean: torch.Tensor) -> torch.Tensor:
-        """ctx_mean [B, M] (already the 1/2K-scaled context sum) -> out [B, M]."""
-        h = ctx_mean @ self.w                      # Formula 1
-        return h @ self.u                          # Formula 2 (1/2K folded in)
+        """ctx_mean [B, M] (already the 1/2K-scaled context sum) -> out [B, M].
+
+        Each product accumulates in float64 from the float32 operands and
+        rounds once to float32 (through autograd, so do the gradient
+        products), so no sum depends on the order a device's library
+        takes it in."""
+        h = (ctx_mean.double() @ self.w.double()).float()            # Formula 1
+        return (h.double() @ self.u.double()).float()                 # Formula 2 (1/2K folded in)
 
     def loss_fn(self, ctx_mean: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Cosine + MSE regression loss of ``forward(ctx_mean)`` on
+        ``target``, its row sums and norms in float64. With ``forward``'s
+        products this makes a fit on the card end where one on the CPU
+        does (ROADMAP Queue 3 item 1). Weights, Adam moments and updates
+        stay float32: the algorithm is the reference's float32 one."""
         cfg = self.cfg
-        out = self(ctx_mean)
-        mse = torch.mean(torch.sum(torch.square(out - target), dim=-1))
-        tn = target / (torch.linalg.norm(target, dim=-1, keepdim=True) + 1e-9)
+        out = self(ctx_mean).double()
+        tgt = target.double()
+        mse = torch.mean(torch.sum(torch.square(out - tgt), dim=-1))
+        tn = tgt / (torch.linalg.norm(tgt, dim=-1, keepdim=True) + 1e-9)
         on = out / (torch.linalg.norm(out, dim=-1, keepdim=True) + 1e-9)
         cos = torch.mean(1.0 - torch.sum(tn * on, dim=-1))
         return cfg.mse_weight * mse + cfg.cos_weight * cos
@@ -142,8 +155,10 @@ class ContextModel(nn.Module):
             self.reset_parameters()
         else:
             self.set_params(*init)
+        # one implementation on every device: torch picks `foreach` for CUDA
+        # tensors and the single-tensor loop for CPU ones unless told
         opt = torch.optim.Adam(self.parameters(), lr=cfg.lr, betas=(0.9, 0.95),
-                               eps=1e-8, weight_decay=0.0)
+                               eps=1e-8, weight_decay=0.0, foreach=False, fused=False)
         rng = np.random.Generator(np.random.PCG64(cfg.seed))
         n = ctx.shape[0]
         bs = min(cfg.batch_size, n)

@@ -39,6 +39,19 @@ GEAR_TABLE = _rng.integers(0, 2**32, size=256, dtype=np.uint32)
 U32 = 0xFFFFFFFF
 
 
+def modinv_pow2(a: int, bits: int = 32) -> int:
+    """Inverse of odd ``a`` modulo 2**bits (Newton iteration)."""
+    if a % 2 != 1:
+        raise ValueError(f"{a} is even: it has no inverse mod 2^{bits}")
+    x = a  # correct mod 2^3
+    for _ in range(6):
+        x = (x * (2 - a * x)) % (1 << bits)
+    return x % (1 << bits)
+
+
+POLY_P_INV = np.uint32(modinv_pow2(int(POLY_P)))
+
+
 def poly_powers(n: int, p: np.uint32 = POLY_P) -> np.ndarray:
     """[p^0, p^1, ..., p^{n-1}] as uint32 (wrapping)."""
     out = np.empty(n, dtype=np.uint32)
@@ -121,6 +134,53 @@ def gear_hashes(data: torch.Tensor) -> torch.Tensor:
 def rabin_fps(data: torch.Tensor, window: int = RABIN_WINDOW) -> torch.Tensor:
     """[n] uint8 -> [n] u32-in-int64 windowed polynomial fingerprints."""
     return windowed_weighted_sum(data.long(), poly_powers(window))
+
+
+def pow_table(base: int, n: int, device: torch.device | str) -> torch.Tensor:
+    """[base^0, base^1, ..., base^(n-1)] mod 2^32 as u32-in-int64 on
+    ``device``, by doubling: the second half of a table of 2^j powers is
+    its first half times base^(2^j), so the table takes log2(n) products
+    and no loop over its entries."""
+    out = torch.ones(max(n, 1), dtype=torch.int64, device=device)
+    have, step = 1, int(base) & U32                 # step = base^have
+    while have < n:
+        take = min(have, n - have)
+        out[have:have + take] = mul_u32(out[:take], step)
+        have += take
+        step = (step * step) & U32
+    return out[:n]
+
+
+def segment_poly_hashes(data: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """Polynomial hash h = h*p + b (mod 2^32) of each segment
+    [bounds[..., i], bounds[..., i+1]) of the byte buffer ``data`` ([n]
+    uint8); ``bounds`` [..., S+1] int64 positions in [0, n], ascending
+    along the last axis. Returns [..., S] u32-in-int64.
+
+    Prefix-sum form, as the reference's ``segment_poly_hashes_np``:
+
+        P_i = sum_{j<i} b_j * p^{-(j+1)}             (mod 2^32)
+        hash(l, r) = (P_r - P_l) * p^r               (mod 2^32)
+
+    The product depends on r - l and the bytes only, so the segments of
+    many chunks laid end to end in one buffer hash in one prefix sum.
+    Each term is below 2^40 and int64 wraparound is mod 2^64, so the low
+    32 bits of the sum are exact at any length."""
+    n = data.shape[0]
+    dev = data.device
+    ipows = mul_u32(pow_table(int(POLY_P_INV), n, dev), int(POLY_P_INV))   # p^-(j+1)
+    prefix = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    prefix[1:] = torch.cumsum(data.long() * ipows, 0)
+    prefix &= U32
+    pows = pow_table(int(POLY_P), n + 1, dev)
+    lo, hi = bounds[..., :-1], bounds[..., 1:]
+    return mul_u32((prefix[hi] - prefix[lo]) & U32, pows[hi])
+
+
+def poly_hash(data: torch.Tensor) -> int:
+    """Whole-buffer polynomial hash h = h*p + b (mod 2^32) of [n] uint8."""
+    bounds = torch.tensor([0, data.shape[0]], dtype=torch.int64, device=data.device)
+    return int(segment_poly_hashes(data, bounds)[0])
 
 
 def multiply_shift_unit(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -113,8 +113,12 @@ class CARDDetector(LegacyDetectMixin):
     Batch two-phase search: one top-1 query of the stream's chunks against
     the stored index, plus one intra-stream similarity pass (earlier chunks
     of the same stream are eligible bases), then a single batched insert.
-    The index is a registry name (``"exact"``, the default) or an index
-    object. Runs on the CUDA device unless given ``device="cpu"``.
+    The index is a registry name (``"exact"``, the default, or
+    ``"banded-lsh"``; ``use_lsh_bands`` survives as the reference's v0
+    alias) or an index object. ``fused=False`` takes the per-chunk feature
+    path. Runs on the CUDA device unless given ``device="cpu"``;
+    ``use_kernel=False`` names the reference's path that skips its
+    kernels, which on the CPU changes nothing and on the card raises.
     """
 
     name = "card"
@@ -123,36 +127,48 @@ class CARDDetector(LegacyDetectMixin):
                  feat_cfg: features.FeatureConfig | None = None,
                  model_cfg: context_model.ContextModelConfig | None = None,
                  threshold: float = 0.3,
+                 use_lsh_bands: bool = False,
+                 use_kernel: bool = True,
+                 fused: bool = True,
                  index: str | Any | None = None,
                  index_args: dict | None = None,
                  device: str | torch.device | None = None):
         self.device = ops.resolve_device(device)
+        if not use_kernel and self.device.type == "cuda":
+            raise ValueError("use_kernel=False: on the card the port runs its "
+                             "kernels and has no path that skips them")
         self.feat_cfg = feat_cfg or features.FeatureConfig()
         self.model_cfg = model_cfg or context_model.ContextModelConfig(m=self.feat_cfg.m)
         if self.model_cfg.m != self.feat_cfg.m:
             raise ValueError(f"model m={self.model_cfg.m} != feature m={self.feat_cfg.m}")
         self.threshold = threshold
+        self.fused = fused
         # the chunker's max chunk size pins the Lmax bucket (set by fit)
         self.lmax_floor = 0
-        self.extractor = features.FeatureExtractor(self.feat_cfg, device=self.device)
+        self.extractor = features.FeatureExtractor(self.feat_cfg, device=self.device,
+                                                   fused=fused)
         self.model = context_model.ContextModel(self.model_cfg, device=self.device)
-        if index is None or isinstance(index, str):
-            self.index = get_index(index or "exact")(
-                self.model_cfg.d, threshold=threshold, device=self.device,
-                **(index_args or {}))
+        if index is None:
+            index = "banded-lsh" if use_lsh_bands else "exact"
+        if isinstance(index, str):
+            kwargs = dict(index_args or {})
+            if index == "exact":
+                kwargs.setdefault("use_kernel", use_kernel)
+            self.index = get_index(index)(self.model_cfg.d, threshold=threshold,
+                                          device=self.device, **kwargs)
         else:
             self.index = index
 
     def _initial_features(self, chunks, stream_hashes) -> torch.Tensor:
         offs = np.asarray([c.offset for c in chunks], np.int64)
-        lens = np.asarray([c.length for c in chunks], np.int64)
-        return self.extractor(stream_hashes, offs, lens, lmax_floor=self.lmax_floor)
+        return self.extractor([c.data for c in chunks], stream_hashes, offs,
+                              lmax_floor=self.lmax_floor)
 
     def fit(self, training_streams: Sequence[bytes], cfg: chunking.ChunkerConfig,
             init: tuple[np.ndarray, np.ndarray] | None = None) -> None:
         """Training process (paper Fig. 3 left): chunk the training data in
         stream order, extract initial features, train the CBOW model."""
-        self.lmax_floor = int(cfg.max_size)
+        self.lmax_floor = int(getattr(cfg, "max_size", 0) or 0)
         feats = []
         for stream in training_streams:
             chunks, h = chunk_with(cfg, stream, self.device)
@@ -164,8 +180,10 @@ class CARDDetector(LegacyDetectMixin):
 
     def extract(self, batch: DetectBatch) -> torch.Tensor:
         init = self._initial_features(batch.chunks, batch.stream_hashes)
-        # the reference pads rows to a pow2 bucket before the projection;
-        # kept so both run the product at the same shape
+        if not self.fused:
+            return self.model.transform(init)                      # [n, D]
+        # the reference pads rows to a pow2 bucket before the projection
+        # on its fused path; kept so both run the product at the same shape
         n = init.shape[0]
         pad = features.bucket_pow2(n, 16) - n
         if pad:
@@ -228,24 +246,15 @@ def _build_card(*, feat: dict | None = None, model: dict | None = None,
                 index_args: dict | None = None, use_kernel: bool = True,
                 fused: bool = True,
                 device: str | torch.device | None = None) -> CARDDetector:
-    """The reference's ``"card"`` factory. ``use_kernel=False`` names the
-    reference's path that skips its Pallas kernels: on the CPU the port
-    runs the plain versions anyway, on the card it has no such path."""
-    if not fused:
-        raise NotImplementedError(
-            "fused=False (the per-chunk host feature path) is not ported yet: "
-            "ROADMAP Queue 1 item 5")
-    dev = ops.resolve_device(device)
-    if not use_kernel and dev.type == "cuda":
-        raise ValueError("use_kernel=False: on the card the port runs its "
-                         "kernels and has no path that skips them")
+    """The reference's ``"card"`` factory."""
     feat_cfg = features.FeatureConfig(**(feat or {}))
     model_kw = dict(model or {})
     model_kw.setdefault("m", feat_cfg.m)
     model_cfg = context_model.ContextModelConfig(**model_kw)
     return CARDDetector(feat_cfg=feat_cfg, model_cfg=model_cfg,
                         threshold=threshold, index=index,
-                        index_args=index_args, device=dev)
+                        index_args=index_args, use_kernel=use_kernel,
+                        fused=fused, device=device)
 
 
 def run_workload(detector: Any, versions: Sequence[bytes],

@@ -35,7 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "repro_windowed_sum": [_P, ctypes.c_longlong, _P, ctypes.c_uint, _I,
                            ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P],
-    "repro_shingle_embed": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "repro_shingle_embed": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "repro_shingle_quotient": [_P, _P, ctypes.c_longlong, _P, _P],
     "repro_sim_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

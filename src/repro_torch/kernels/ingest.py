@@ -14,7 +14,7 @@ baselines:
                        -> shingle ids + per-row uniquification
                           (``shingle_inputs``, the real rows only)
                        -> kernel B: multiply-shift embed, mean and
-                          normalise in one launch [B, M]
+                          (``normalize``) normalise in one launch [B, M]
     chunk_rabin_fps  StreamScan's bytes + chunk offsets/lengths
                        -> the chunks packed with zero gaps, one launch of
                           kernel A's Rabin route: each chunk's window
@@ -45,8 +45,9 @@ _FLOOR_B = 16
 SCAN_ALIGN = 128
 
 # Positions are int64 here, but the reference indexes with int32 and
-# routes longer streams to its per-chunk host path, which the port does
-# not have yet: above this limit extract_stream raises.
+# routes longer streams to its per-chunk path; so does the port
+# (core/features.FeatureExtractor), and extract_stream raises above it,
+# as the reference's does.
 FUSED_STREAM_LIMIT = 2**31 - 2**20
 
 
@@ -160,20 +161,28 @@ def subchunk_maxgear(sh: torch.Tensor, offsets: torch.Tensor,
     return range_max(sh, s_abs, e_abs, lmax // k + 1)
 
 
-def shingle_inputs(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
+def shingle_inputs(scan, offsets: np.ndarray, lengths: np.ndarray,
                    device: torch.device, *, k: int, n: int, lmax_floor: int = 0
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Algorithm 1 up to kernel B on ``device``: bucket-pad, sub-chunk
-    LSH, shingle ids and their first-occurrence mask. Returns kernel B's
-    input for the real rows only: [B, S] int32 id bits, [B, S] bool mask.
-    The padded rows exist for the reference's bucketing; rows are
-    independent, so dropping them changes no real row."""
+    LSH, shingle ids and their first-occurrence mask. ``scan`` is a
+    StreamScan or, as the reference also takes, the host [n] uint32 hash
+    array. Returns kernel B's input for the real rows only: [B, S] int32
+    id bits, [B, S] bool mask. The padded rows exist for the reference's
+    bucketing; rows are independent, so dropping them changes no real
+    row."""
     bsz = int(offsets.shape[0])
     ends = np.asarray(offsets, np.int64) + np.asarray(lengths, np.int64)
     if int(ends.max()) > FUSED_STREAM_LIMIT:
-        raise ValueError("streams past FUSED_STREAM_LIMIT need the per-chunk "
-                         "host path, which is not ported")
-    sh = hashing.from_i32_bits(scan.device.to(device))
+        raise ValueError("the fused extract serves streams up to FUSED_STREAM_LIMIT; "
+                         "longer ones take the per-chunk path (FeatureExtractor "
+                         "routes them)")
+    if isinstance(scan, StreamScan):
+        sh = hashing.from_i32_bits(scan.device.to(device))
+    else:
+        host = np.zeros(scan_length(len(scan)), np.int64)
+        host[:len(scan)] = np.asarray(scan, np.uint32)
+        sh = torch.from_numpy(host).to(device)
     bpad = bucket_pow2(bsz, _FLOOR_B)
     lmax = bucket_pow2(max(int(np.max(lengths)), 1), max(1, int(lmax_floor)))
     off_p = torch.zeros(bpad, dtype=torch.int64)
@@ -186,19 +195,20 @@ def shingle_inputs(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
     return hashing.to_i32_bits(ids[:bsz]), mask[:bsz]
 
 
-def extract_stream(scan: StreamScan, offsets: np.ndarray, lengths: np.ndarray,
+def extract_stream(scan, offsets: np.ndarray, lengths: np.ndarray,
                    a: torch.Tensor, b: torch.Tensor, *, k: int, n: int,
-                   lmax_floor: int = 0) -> torch.Tensor:
+                   normalize: bool = True, lmax_floor: int = 0) -> torch.Tensor:
     """Algorithm 1 on the device of ``a``: ``shingle_inputs``, then kernel B.
 
     ``scan`` is the stream's StreamScan from ``scan_stream`` (hash bits
-    padded to SCAN_ALIGN). ``a``/``b`` are the multiply-shift params as int32 bits
-    [M]. Returns [B, M] float32, L2-normalised rows."""
+    padded to SCAN_ALIGN) or its host hash array. ``a``/``b`` are the
+    multiply-shift params as int32 bits [M]. Returns [B, M] float32 mean
+    rows, L2-normalised unless ``normalize`` is False."""
     if offsets.shape[0] == 0:
         return torch.zeros(0, int(a.shape[-1]), dtype=torch.float32, device=a.device)
     ids, mask = shingle_inputs(scan, offsets, lengths, a.device, k=k, n=n,
                                lmax_floor=lmax_floor)
-    return ops.shingle_embed(ids, mask, a, b)
+    return ops.shingle_embed(ids, mask, a, b, normalize)
 
 
 def pack_chunks(data: torch.Tensor, offsets: np.ndarray, lengths: np.ndarray,

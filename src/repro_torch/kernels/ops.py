@@ -97,10 +97,11 @@ def scan_candidates(data: torch.Tensor, mask_s: int, mask_l: int
 
 
 def shingle_embed(ids: torch.Tensor, mask: torch.Tensor, a: torch.Tensor,
-                  b: torch.Tensor) -> torch.Tensor:
+                  b: torch.Tensor, normalize: bool = True) -> torch.Tensor:
     """[B, S] int32 shingle-id bits + [B, S] bool mask, a/b [M] int32 bits
-    -> [B, M] float32 initial features (L2-normalised rows). On the card
-    one launch computes the sums, the mean and the normalisation."""
+    -> [B, M] float32 initial features (mean rows, L2-normalised unless
+    ``normalize`` is False). On the card one launch computes the sums,
+    the mean and the normalisation."""
     _check(ids, "ids", torch.int32, 2)
     _check(mask, "mask", torch.bool, 2)
     _check(a, "a", torch.int32, 1)
@@ -109,13 +110,14 @@ def shingle_embed(ids: torch.Tensor, mask: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"shape mismatch: ids {tuple(ids.shape)}, mask "
                          f"{tuple(mask.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}")
     if not _on_cuda(ids, mask, a, b):
-        return _shingle.mean_normalize(_shingle.shingle_embed_sum_plain(ids, mask, a, b), mask)
+        return _shingle.mean_normalize(_shingle.shingle_embed_sum_plain(ids, mask, a, b),
+                                       mask, normalize)
     if ids.shape[0] == 0:
         return torch.zeros(0, a.shape[0], dtype=torch.float32, device=ids.device)
     if a.shape[0] > _shingle.MAX_M:
         raise ValueError(f"M = {a.shape[0]} exceeds the kernel's {_shingle.MAX_M}")
     LAUNCHES["shingle_embed"] += 1
-    return _shingle.shingle_embed_cuda(ids, mask, a, b)
+    return _shingle.shingle_embed_cuda(ids, mask, a, b, normalize)
 
 
 def sim_topk(q: torch.Tensor, index: torch.Tensor

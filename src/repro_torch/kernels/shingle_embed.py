@@ -2,7 +2,8 @@
 5) — the CUDA launcher and its plain version.
 
     total[b] = sum_s mask[b,s] * msu(ids[b,s]) / ||msu(ids[b,s])||
-    out[b]   = mean over the unmasked shingles, L2-normalised
+    out[b]   = mean over the unmasked shingles, L2-normalised unless
+               normalize=False
 
 The kernel computes both lines in one launch. The plain version is
 ``shingle_embed_sum_plain`` (the first line, as the reference's Pallas
@@ -33,25 +34,28 @@ def shingle_embed_sum_plain(ids: torch.Tensor, mask: torch.Tensor,
     return v.sum(dim=1)
 
 
-def mean_normalize(total: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def mean_normalize(total: torch.Tensor, mask: torch.Tensor,
+                   normalize: bool = True) -> torch.Tensor:
     """[B, M] sums -> mean over each row's unmasked shingles, L2-normalised
-    (an all-masked row stays 0)."""
+    unless ``normalize`` is False (an all-masked row stays 0)."""
     cnt = torch.clamp(mask.sum(dim=-1, keepdim=True), min=1).to(torch.float32)
     feat = total / cnt
+    if not normalize:
+        return feat
     return feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-12)
 
 
-def shingle_embed_cuda(ids: torch.Tensor, mask: torch.Tensor,
-                       a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B (inputs checked by the caller): [B, M] float32
-    L2-normalised mean features."""
+def shingle_embed_cuda(ids: torch.Tensor, mask: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """Launch kernel B (inputs checked by the caller): [B, M] float32 mean
+    features, L2-normalised unless ``normalize`` is False."""
     rows, s_len = ids.shape
     m = a.shape[0]
     out = torch.empty(rows, m, dtype=torch.float32, device=ids.device)
     stream = torch.cuda.current_stream(ids.device).cuda_stream
     err = _build.lib().repro_shingle_embed(
         ids.data_ptr(), mask.data_ptr(), a.data_ptr(), b.data_ptr(),
-        rows, s_len, m, out.data_ptr(), stream)
+        rows, s_len, m, int(normalize), out.data_ptr(), stream)
     _build.check(err, "repro_shingle_embed")
     return out
 

@@ -2,10 +2,11 @@
 ``api.registry``) against the JAX package's ``repro.api``: the same
 config dict gives the same validation, the same round trip and, through
 ``build_store``, the same verdicts, container records, per-stream counts
-and DCR for every ported detector. The trace and server knobs build what
-the reference's build (a tracer, a ``DedupServer``); the one knob whose
-component is not ported raises ``NotImplementedError``; nothing is
-silently ignored.
+and DCR for every ported detector, and for CARD with each feature path
+and index knob (``fused: False``, ``lsh: "poly"``, ``normalize: False``,
+``index: "banded-lsh"``). The trace and server knobs build what the
+reference's build (a tracer, a ``DedupServer``); nothing is silently
+ignored.
 
 Test-only registrations go through ``monkeypatch`` on the port's own
 tables (undone at teardown); nothing here registers into the reference's
@@ -38,6 +39,19 @@ DICTS = {
     "finesse": {"detector": "finesse", "chunker_args": {"avg_size": AVG}},
     "n-transform": {"detector": "n-transform", "chunker_args": {"avg_size": AVG}},
     "card": {"detector": "card", "detector_args": CARD_ARGS, "chunker_args": {"avg_size": AVG}},
+    # the per-chunk feature path, the poly ablation, unnormalised features
+    # and the banded index, each from a dict
+    "card-unfused": {"detector": "card", "detector_args": {**CARD_ARGS, "fused": False},
+                     "chunker_args": {"avg_size": AVG}},
+    "card-poly": {"detector": "card",
+                  "detector_args": {**CARD_ARGS, "feat": {**CARD_ARGS["feat"], "lsh": "poly"}},
+                  "chunker_args": {"avg_size": AVG}},
+    "card-unnormalized": {
+        "detector": "card",
+        "detector_args": {**CARD_ARGS, "feat": {**CARD_ARGS["feat"], "normalize": False}},
+        "chunker_args": {"avg_size": AVG}},
+    "card-banded": {"detector": "card", "detector_args": {**CARD_ARGS, "index": "banded-lsh"},
+                    "chunker_args": {"avg_size": AVG}},
 }
 
 
@@ -133,7 +147,7 @@ def test_invalid_config_raises_as_the_reference(bad):
 
 def test_registry_listings():
     assert registry.available_detectors() == ["card", "dedup-only", "finesse", "n-transform"]
-    assert registry.available_indexes() == ["exact"]
+    assert registry.available_indexes() == ["banded-lsh", "exact"]
     assert registry.available_chunkers() == ["fastcdc"]
     assert registry.available_backends() == ["file", "memory", "objectstore"]
     assert registry.available_policies() == ["eager", "never", "threshold"]
@@ -227,21 +241,6 @@ def test_api_exports_are_reference_names():
                  "DedupServer", "OverloadError", "QuotaExceededError", "RequestRejected",
                  "TenantConfig", "build_server"):
         assert name in mine and getattr(api, name).__module__.startswith("repro_torch.api")
-
-
-# --- what is not ported raises ---------------------------------------------------
-
-UNPORTED = [
-    ({"detector_args": {**CARD_ARGS, "fused": False}}, "Queue 1 item 5"),
-]
-
-
-@pytest.mark.parametrize("extra,item", UNPORTED,
-                         ids=lambda x: "-".join(x) if isinstance(x, dict) else None)
-def test_unported_knob_raises(extra, item):
-    cfg = config.DedupConfig.from_dict({"detector": "card", **extra})
-    with pytest.raises(NotImplementedError, match=item):
-        config.build_store(cfg, device="cpu")
 
 
 # the trace and server knobs, each as the reference builds it: (knob dict,
@@ -346,8 +345,8 @@ def test_policy_args_a_policy_does_not_take_raise_as_the_reference():
     ({"backend": "s3"}, KeyError, "backend 's3' needs boto3 .* not ported"),
     ({"backend": "nope"}, KeyError,
      "unknown backend 'nope'; available: \\['file', 'memory', 'objectstore'\\]"),
-    ({"detector_args": {"index": "banded-lsh"}}, KeyError,
-     "unknown index 'banded-lsh'; available: \\['exact'\\]"),
+    ({"detector_args": {"index": "nope"}}, KeyError,
+     "unknown index 'nope'; available: \\['banded-lsh', 'exact'\\]"),
     ({"chunker": "rabin"}, KeyError, "unknown chunker"),
 ], ids=["s3", "nope", "banded-lsh", "chunker"])
 def test_unregistered_component_raises(d, err, match):

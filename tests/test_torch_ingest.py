@@ -107,7 +107,7 @@ def test_extract_stream_vs_reference(seed):
     ext = features.FeatureExtractor(features.FeatureConfig(k=32, m=64, n=2), device="cpu")
     scan, _, _ = ingest.scan_stream(stream, 0xFF, 0xF, "cpu")
     assert np.array_equal(np.asarray(scan), h)
-    got = ext(scan, offs, np.asarray(sizes)).numpy()
+    got = ext.features_from_stream(scan, offs, np.asarray(sizes)).numpy()
     assert got.shape == want.shape == (len(sizes), 64)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
@@ -131,7 +131,7 @@ def test_embed_plain_route_vs_reference_embed_shingles():
 def test_extract_limits():
     ext = features.FeatureExtractor(features.FeatureConfig(k=8, m=16, n=2), device="cpu")
     scan, _, _ = ingest.scan_stream(np.zeros(10, np.uint8), 0xFF, 0xF, "cpu")
-    empty = ext(scan, np.zeros(0, np.int64), np.zeros(0, np.int64))
+    empty = ext.features_from_stream(scan, np.zeros(0, np.int64), np.zeros(0, np.int64))
     assert tuple(empty.shape) == (0, 16)
     with pytest.raises(ValueError, match="FUSED_STREAM_LIMIT"):
         ingest.extract_stream(scan, np.asarray([ingest.FUSED_STREAM_LIMIT]),

@@ -1,4 +1,8 @@
-"""Verdicts must not depend on the global TF32 settings.
+"""The port's indexes (``repro_torch.core.similarity``): verdicts that do
+not depend on the global TF32 settings, and the banded index held to the
+reference's.
+
+Verdicts must not depend on the global TF32 settings.
 
 The port's two cuBLAS fp32 products that decide verdicts (the small path
 of ``CosineIndex.query`` and the detector's intra-stream ``feats @
@@ -8,7 +12,12 @@ product sees TF32 off inside every call, the caller's settings come back
 unchanged afterwards, and the verdicts equal those of a run with TF32
 off. On the CPU the flags do not change a product, so the spy is what
 shows the pinning; ``chip_smoke.py`` repeats the verdict check on the
-card, where cuBLAS reads them."""
+card, where cuBLAS reads them.
+
+``BandedLSHIndex`` takes the reference's planes, keys, tables and
+answers on the same features, and a CARD store over it (by name or
+through the ``use_lsh_bands`` alias) gives the reference's verdicts,
+records and DCR."""
 import numpy as np
 import pytest
 import torch
@@ -122,3 +131,104 @@ def test_small_query_matches_reference_with_tf32_on(restore_settings):
     np.testing.assert_array_equal(ids, want_ids)
     np.testing.assert_allclose(scores, want_scores, rtol=1e-6, atol=1e-6)
     assert CUBLAS.allow_tf32 is True
+
+
+# --- the banded index ----------------------------------------------------------
+
+def _unit_rows(seed: int, n: int, d: int = 50) -> np.ndarray:
+    rows = np.random.Generator(np.random.PCG64(seed)).standard_normal((n, d)).astype(np.float32)
+    return rows / np.linalg.norm(rows, axis=1, keepdims=True)
+
+
+def test_banded_insert_batch_equals_serial_insert():
+    rows = _unit_rows(1, 200)
+    batch = similarity.BandedLSHIndex(50, device="cpu")
+    batch.insert_batch(torch.from_numpy(rows), np.arange(200) + 7)
+    serial = similarity.BandedLSHIndex(50, device="cpu")
+    for i, r in enumerate(rows):
+        serial.insert(r, i + 7)
+    assert batch._tables == serial._tables
+    assert all(np.array_equal(batch._feats[c], serial._feats[c]) for c in serial._feats)
+    q = torch.from_numpy(rows[:20] + 0.1 * _unit_rows(2, 20))
+    for a, b in zip(batch.query(q), serial.query(q)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("bands,band_bits,seed", [(16, 6, 11), (8, 4, 3), (4, 10, 0)])
+def test_banded_matches_reference(bands, band_bits, seed):
+    """The same planes, keys, tables and answers as the reference's on the
+    same features (near copies, unrelated rows, an empty bucket)."""
+    rows = _unit_rows(seed + 5, 300)
+    q = np.concatenate([rows[:40] + 0.2 * _unit_rows(seed + 6, 40), _unit_rows(seed + 7, 40)])
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    ref = ref_similarity.BandedLSHIndex(50, bands=bands, band_bits=band_bits, seed=seed)
+    port = similarity.BandedLSHIndex(50, bands=bands, band_bits=band_bits, seed=seed,
+                                     device="cpu")
+    np.testing.assert_array_equal(port._planes, ref._planes)
+    assert (port.query(torch.from_numpy(q))[0] == -1).all()        # empty index
+    ref.insert_batch(rows, np.arange(300))
+    port.insert_batch(torch.from_numpy(rows), np.arange(300))
+    np.testing.assert_array_equal(port._keys_batch(q), ref._keys_batch(q))
+    assert port._tables == ref._tables
+    ids, scores = port.query(torch.from_numpy(q))
+    want_ids, want_scores = ref.query(q)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(scores, want_scores)
+    assert (ids >= 0).any() and (ids == -1).any()
+    assert port.query_one(q[0]) == ref.query_one(q[0])
+
+
+def _card_store_pair(port_kw: dict, ref_kw: dict):
+    from repro.api.store import DedupStore as RefDedupStore
+    from repro.core import chunking as ref_chunking
+    from repro.core import context_model as ref_context_model
+    from repro.core import features as ref_features
+    from repro.core import pipeline as ref_pipeline
+    feat, model = dict(k=16, m=64, n=2), dict(m=64, d=50, steps=30)
+    port = DedupStore(pipeline.CARDDetector(
+        features.FeatureConfig(**feat), context_model.ContextModelConfig(**model),
+        device="cpu", **port_kw), chunking.ChunkerConfig(avg_size=1024), device="cpu")
+    ref = RefDedupStore(ref_pipeline.CARDDetector(
+        ref_features.FeatureConfig(**feat), ref_context_model.ContextModelConfig(**model),
+        use_kernel=False, **ref_kw), ref_chunking.ChunkerConfig(avg_size=1024))
+    return port, ref
+
+
+@pytest.mark.parametrize("how", ["use_lsh_bands", "index"])
+def test_card_with_banded_index_matches_reference(how):
+    """CARD over the banded index, through the v0 alias and by name with
+    index_args: the reference's verdicts, records, DCR and restores."""
+    kw = ({"use_lsh_bands": True} if how == "use_lsh_bands"
+          else {"index": "banded-lsh", "index_args": {"bands": 8, "band_bits": 5}})
+    port, ref = _card_store_pair(kw, kw)
+    assert type(port.detector.index) is similarity.BandedLSHIndex
+    versions = workloads.make_workload(
+        "kernel", workloads.WorkloadConfig(base_size=96 << 10, versions=3))
+    for store in (port, ref):
+        store.fit(versions[:1])
+        for v in versions:
+            store.ingest(v)
+    key = lambda r: (r.bytes_stored, r.chunks, r.dup_chunks, r.delta_chunks, r.raw_chunks)
+    assert [key(r) for r in port.reports] == [key(r) for r in ref.reports]
+    assert sorted(port.backend.chunk_ids()) == sorted(ref.backend.chunk_ids())
+    for cid in ref.backend.chunk_ids():
+        assert port.backend.record(cid) == ref.backend.record(cid)
+    assert port.stats.dcr == ref.stats.dcr and port.stats.delta_chunks > 0
+    for h, v in enumerate(versions):
+        assert port.restore(h) == v
+
+
+def test_cosine_index_use_kernel(monkeypatch):
+    """``use_kernel=False`` changes nothing on the CPU and is refused on the
+    card, where the port has no path that skips kernel C."""
+    rows = _unit_rows(3, 600)
+    off = similarity.CosineIndex(50, use_kernel=False, device="cpu")
+    on = similarity.CosineIndex(50, device="cpu")
+    for index in (off, on):
+        index.insert_batch(torch.from_numpy(rows), np.arange(600))
+    q = torch.from_numpy(rows[:16])
+    for a, b in zip(off.query(q), on.query(q)):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(similarity.ops, "resolve_device", lambda device: torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        similarity.CosineIndex(50, use_kernel=False)
