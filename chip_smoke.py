@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each (phases 3b and 7 are the LM slice):
+Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
   1. device   the card's name and power limit (nvidia-smi), the torch and
               CUDA versions; TF32 must be off;
   2. build    nvcc builds every kernel in src/repro_torch/kernels/csrc
@@ -33,7 +33,10 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               kernel): granite-8b's heads, causal, ragged, causal and
               non-causal Tq != Tk, hd 64, batch 2; then the tensor-core
               kernel timed at the prefill shape beside the SIMT kernel,
-              the plain version, SDPA and the bound;
+              the plain version, SDPA and the bound; then one line an
+              arch whose heads differ from granite's (phi3-medium 40 / 10,
+              chatglm3 32 / 2, qwen3-moe 32 / 4 at hd 64), at the same
+              length, held to the bf16 tolerance and timed the same way;
   4. main     CARD ingest end to end (DedupStore on the card) over
               sql_dump and vmdk, 32 MiB x 4 versions: fit, ingest,
               SHA-256-identical restore, stage times, DCR (which must be
@@ -64,7 +67,12 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               and the restore stays exact with retries > 0. One JSON line a
               workload and backend: DCR, counts, ingest MB/s, store seconds,
               cold / warm restore MB/s, bytes read, requests and read
-              amplification, bytes on disk, the crc32c route and its seconds;
+              amplification, bytes on disk, the crc32c route and its seconds.
+              Then "s3": CARD over S3ObjectClient on an in-process fake of
+              the boto3 surface (StubS3): fit, ingest (DCR, bytes stored and
+              counts the "objectstore" run's, A, B and C launched), close, a
+              second store on the same bucket restores every version
+              SHA-256-identically;
   4d. lifecycle  space reclamation on three CARD stores built from dicts
               on the card ("file" with verify_reads and policy "never" for
               both workloads, "objectstore" with policy "threshold", ratio
@@ -143,7 +151,22 @@ Phases, one JSON line each (phases 3b and 7 are the LM slice):
               memory); serve_loop at batch 4, prompt 64, 64 new tokens,
               and a profiled short serve_loop for decode's device busy
               share; and, at depth 4 in f32, prefill's last logits against
-              token-by-token decode_step.
+              token-by-token decode_step;
+  7b. lm_families  granite-3-8b, phi3-medium-14b, chatglm3-6b and
+              qwen3-moe-30b-a3b at full width and depth in bf16 (seeded
+              random weights), one at a time, each freed before the next:
+              a 32,768-token prefill through kernel D (one launch a layer,
+              all on the tensor cores; seconds, tokens/s, D's time, peak
+              memory with the weights, for MoE the share of routing
+              assignments capacity dropped); qwen3-moe also serve_loop at
+              batch 4, prompt 64, 16 new tokens (tokens/s, drops in the
+              prompt steps and in generation); then, for those four and
+              grok-1, f32 parity at the arch's full head layout with depth
+              4, d_ff 512, vocabulary 4096 and at most 16 experts: the
+              card's prefill against the CPU's on the same weights within
+              1e-3, a dense arch's also against its token-by-token decode,
+              an MoE arch's differing routing decisions counted, each a
+              near tie (margin < 1e-6).
 Then the nvidia-smi line, the kernels summary line, and the result line.
 Exits non-zero on any mismatch and when there is no CUDA device.
 """
@@ -623,42 +646,73 @@ def check_attn(dev, gen, t_main: int) -> dict:
 
     q, k, v = attn_inputs(1, t_main, t_main, LM.num_heads, LM.num_kv_heads, LM.head_dim,
                           torch.bfloat16, dev, gen)
+    main_name = f"{t_main}x{t_main}_causal"
+    row, plain = time_attn(q, k, v, main_name)
+    # the SIMT kernel on the same inputs: kernel D's earlier time
+    outs = {}
+    simt_ms = time_ms(lambda: outs.update(simt=flash_attn.flash_attention_cuda(q, k, v, True)),
+                      reps=1, warmup=1)
+    simt_err, simt_used = attn_err(outs["simt"], plain, torch.bfloat16, "simt " + main_name)
+    del outs, plain, q, k, v
+    flops = row.pop("flops")
+    emit("attn_kernel", name="flash_attention", checks=checks,
+         tol={str(k)[6:]: v for k, v in ATTN_TOL.items()}, bf16_ulp_rtol=BF16_ULP,
+         dtype="bfloat16", route="sm90", **row, kernel_ms=row["ms"],
+         simt_ms=simt_ms, simt_max_abs_err=simt_err, simt_bound_used=simt_used,
+         bound_rate="989e12 bf16 FLOP/s", kernel_tflop_per_s=flops / row["ms"] / 1e9,
+         # Q.K^T once and P.V twice (P hi and lo): the FLOPs the tensor cores do
+         tensor_core_tflop_per_s=1.5 * flops / row["ms"] / 1e9,
+         simt_tflop_per_s=flops / simt_ms / 1e9)
+    # the other archs' head layouts at the same length (phase lm_families
+    # runs each at these shapes)
+    arch_rows = []
+    for arch, h, kv, hd in ATTN_ARCH_SHAPES:
+        q, k, v = attn_inputs(1, t_main, t_main, h, kv, hd, torch.bfloat16, dev, gen)
+        arch_row, plain = time_attn(q, k, v, f"{arch} {main_name}")
+        del plain, q, k, v
+        arch_row.pop("flops")
+        arch_rows.append(dict(arch=arch, **arch_row))
+        emit("attn_kernel", name="flash_attention", arch=arch, dtype="bfloat16",
+             route="sm90", **arch_row)
+    err_f32 = max(c["max_abs_err"] for c in checks if c["dtype"] == "float32")
+    return dict(name="flash_attention", max_abs_err=row["max_abs_err"], max_abs_err_f32=err_f32,
+                ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
+                simt_ms=simt_ms, simt_source=flash_attn.SOURCE_SIMT, arch_rows=arch_rows)
+
+
+# (arch, H, KV, hd) of phase lm_families' archs whose heads differ from
+# granite-8b's (granite-3-8b has its 32 / 8 at hd 128): group 4 at 40
+# heads, group 16, and hd 64 on the tensor cores
+ATTN_ARCH_SHAPES = [("phi3-medium-14b", 40, 10, 128), ("chatglm3-6b", 32, 2, 128),
+                    ("qwen3-moe-30b-a3b", 32, 4, 64)]
+
+
+def time_attn(q, k, v, what: str) -> tuple[dict, torch.Tensor]:
+    """Kernel D's tensor-core route at one causal bf16 prefill shape
+    ([1, T, H, hd] q, [1, T, KV, hd] k, v), held to the plain version and
+    timed beside it, SDPA and the bound: bytes, q, k, v and o once each;
+    operations, 2 H T^2 hd (Q.K^T and P.V over the causal half) at the bf16
+    tensor-core rate. Returns (the row, the plain output)."""
+    _, t_len, h, hd = q.shape
     outs = {}
     before = ops.LAUNCHES["flash_attention_sm90"]
     ms = time_ms(lambda: outs.update(sm90=ops.flash_attention(q, k, v, True)),
                  reps=10, warmup=2)
     if ops.LAUNCHES["flash_attention_sm90"] - before != 12:
-        fail("the prefill-shape timing did not run the tensor-core route")
-    # the SIMT kernel on the same inputs: kernel D's earlier time
-    simt_ms = time_ms(lambda: outs.update(simt=flash_attn.flash_attention_cuda(q, k, v, True)),
-                      reps=1, warmup=1)
+        fail(f"the {what} timing did not run the tensor-core route")
     plain_ms = time_ms(lambda: outs.update(plain=attn_plain(q, k, v, True)),
                        reps=1, warmup=1)
-    main_name = f"{t_main}x{t_main}_causal"
-    err, used = attn_err(outs["sm90"], outs["plain"], torch.bfloat16, main_name)
-    simt_err, simt_used = attn_err(outs["simt"], outs["plain"], torch.bfloat16, "simt " + main_name)
-    del outs
+    err, used = attn_err(outs["sm90"], outs["plain"], torch.bfloat16, what)
     t = lambda x: x.transpose(1, 2)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         t(q), t(k), t(v), is_causal=True, enable_gqa=True), reps=5, warmup=2)
     moved = 2 * (2 * q.numel() + k.numel() + v.numel())          # q, k, v, o in bf16
-    flops = 2.0 * 2.0 * LM.num_heads * t_main * t_main * LM.head_dim / 2    # causal half
+    flops = 2.0 * 2.0 * h * t_len * t_len * hd / 2                 # causal half
     b_ms, b_by = bound(moved, flops, BF16_FLOP_PER_S)
-    shape = [1, t_main, LM.num_heads, LM.num_kv_heads, LM.head_dim]
-    emit("attn_kernel", name="flash_attention", checks=checks,
-         tol={str(k)[6:]: v for k, v in ATTN_TOL.items()}, bf16_ulp_rtol=BF16_ULP,
-         shape=shape, dtype="bfloat16", route="sm90", max_abs_err=err, bound_used=used,
-         kernel_ms=ms, simt_ms=simt_ms, simt_max_abs_err=simt_err, simt_bound_used=simt_used,
-         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-         bound_rate="989e12 bf16 FLOP/s", kernel_tflop_per_s=flops / ms / 1e9,
-         # Q.K^T once and P.V twice (P hi and lo): the FLOPs the tensor cores do
-         tensor_core_tflop_per_s=1.5 * flops / ms / 1e9, simt_tflop_per_s=flops / simt_ms / 1e9)
-    del q, k, v
-    err_f32 = max(c["max_abs_err"] for c in checks if c["dtype"] == "float32")
-    return dict(name="flash_attention", max_abs_err=err, max_abs_err_f32=err_f32,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=shape, simt_ms=simt_ms,
-                simt_source=flash_attn.SOURCE_SIMT)
+    row = dict(shape=[1, t_len, h, k.shape[2], hd], max_abs_err=err, bound_used=used, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, flops=flops)
+    return row, outs["plain"]
 
 
 # --- phase 4: the main path ----------------------------------------------------
@@ -1015,7 +1069,131 @@ def backends_phase(dev, name: str, versions: list[bytes]) -> dict[str, int]:
             del store
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    for k, v in s3_backend(dev, name, versions).items():
+        launches[k] += v
     return launches
+
+
+# --- phase 4c, "s3": CARD over S3ObjectClient and an in-process S3 fake -------
+
+class _NoSuchKey(Exception):
+    """boto3 raises a generated class named ``NoSuchKey``; the client
+    matches on the class name."""
+
+
+_NoSuchKey.__name__ = "NoSuchKey"
+
+
+class _Missing(Exception):
+    """botocore-shaped 404, the status where the client reads it."""
+
+    def __init__(self, key: str) -> None:
+        super().__init__(f"head_object: 404 for {key!r}")
+        self.response = {"ResponseMetadata": {"HTTPStatusCode": 404}}
+
+
+class _Body:
+    def __init__(self, data: bytes) -> None:
+        self._data = data
+
+    def read(self) -> bytes:
+        return self._data
+
+
+class _Pages:
+    def __init__(self, buckets: dict) -> None:
+        self._buckets = buckets
+
+    def paginate(self, Bucket: str, Prefix: str = ""):
+        keys = sorted(k for k in self._buckets.get(Bucket, {}) if k.startswith(Prefix))
+        for i in range(0, len(keys), 2):
+            yield {"Contents": [{"Key": k, "Size": len(self._buckets[Bucket][k])}
+                                for k in keys[i:i + 2]]}
+        if not keys:
+            yield {}
+
+
+class StubS3:
+    """In-process fake of the boto3 S3 surface ``S3ObjectClient`` uses
+    (a copy of the conformance suite's ``_StubS3``: inclusive-end ranges
+    clamped at the object's end, small list pages, idempotent deletes),
+    so the "s3" path runs with neither boto3 nor a network."""
+
+    def __init__(self) -> None:
+        self._buckets: dict[str, dict[str, bytes]] = {}
+
+    def put_object(self, Bucket: str, Key: str, Body: bytes) -> dict:
+        self._buckets.setdefault(Bucket, {})[Key] = bytes(Body)
+        return {"ResponseMetadata": {"HTTPStatusCode": 200}}
+
+    def get_object(self, Bucket: str, Key: str, Range: str | None = None) -> dict:
+        data = self._buckets.get(Bucket, {}).get(Key)
+        if data is None:
+            raise _NoSuchKey(f"NoSuchKey: {Key!r}")
+        if Range is not None:
+            start, _, end = Range.removeprefix("bytes=").partition("-")
+            data = data[int(start):int(end) + 1]
+        return {"Body": _Body(data), "ResponseMetadata": {"HTTPStatusCode": 200}}
+
+    def head_object(self, Bucket: str, Key: str) -> dict:
+        data = self._buckets.get(Bucket, {}).get(Key)
+        if data is None:
+            raise _Missing(Key)
+        return {"ContentLength": len(data), "ResponseMetadata": {"HTTPStatusCode": 200}}
+
+    def get_paginator(self, op: str) -> _Pages:
+        if op != "list_objects_v2":
+            raise ValueError(op)
+        return _Pages(self._buckets)
+
+    def delete_object(self, Bucket: str, Key: str) -> dict:
+        self._buckets.get(Bucket, {}).pop(Key, None)
+        return {"ResponseMetadata": {"HTTPStatusCode": 204}}
+
+
+def s3_backend(dev, name: str, versions: list[bytes]) -> dict[str, int]:
+    """CARD from phase 4c's dict over ``ObjectStoreBackend(client=
+    S3ObjectClient(..., client=StubS3()))``: fit, ingest the 4 versions
+    (DCR, bytes stored and counts must be the "objectstore" run's: the
+    same objects, through another client), close; a second store on the
+    same bucket restores every version SHA-256-identically. Returns the
+    ingest's kernel launches."""
+    from repro_torch.api.objectstore import S3ObjectClient
+    what = f"backends {name} s3"
+    stub = StubS3()
+    d = backend_config("objectstore", "").to_dict()
+    d["backend_args"] = {"client": S3ObjectClient("chip-smoke", f"card/{name}", client=stub)}
+    cfg = config.DedupConfig.from_dict(d)
+    store = config.build_store(cfg, device=dev)
+    store._clock()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    store.fit(versions[:1])
+    t1 = time.perf_counter()
+    for v in versions:
+        store.ingest(v)
+    t2 = store._clock()
+    lc = card_launches(what)
+    st = store.stats
+    counts = (st.chunks, st.dup_chunks, st.delta_chunks, st.raw_chunks)
+    want_dcr, want_stored, *want_counts = BACKEND_REFERENCE[name]["objectstore"]
+    if round(st.dcr, 6) != want_dcr or st.bytes_stored != want_stored \
+            or list(counts) != want_counts:
+        fail(f"{what}: DCR {st.dcr}, {st.bytes_stored} bytes stored and counts {counts} are "
+             f"not the objectstore run's {want_dcr}, {want_stored}, {want_counts}")
+    store.close()
+    objects = stub._buckets["chip-smoke"]
+    store = config.build_store(cfg, device=dev)
+    cold = restore_all(store, versions, f"{what} reopened")
+    store.close()
+    total = sum(len(v) for v in versions)
+    emit("backends", workload=name, backend="s3", client="S3ObjectClient over StubS3",
+         base_mib=BASE / 2**20, versions=len(versions), bytes_in=total, dcr=st.dcr,
+         dcr_reference=want_dcr, bytes_stored=st.bytes_stored, counts=list(counts),
+         ingest=dict(seconds=t2 - t1, mb_per_s=total / 1e6 / (t2 - t1), fit_s=t1 - t0),
+         objects=len(objects), object_bytes=sum(map(len, objects.values())),
+         cold=cold, restored="sha256-identical", launches={"ingest": lc})
+    return lc
 
 
 # --- phase 4d: space reclamation on the card ----------------------------------
@@ -2378,6 +2556,214 @@ def lm_phase(dev) -> int:
     return launches
 
 
+# --- phase 7b: the other LM archs -----------------------------------------------
+
+# each at full width and depth in bf16 (seeded random weights): a prefill of
+# PREFILL_LEN tokens, every attention sublayer through kernel D
+FAMILY_ARCHS = ("granite-3-8b", "phi3-medium-14b", "chatglm3-6b", "qwen3-moe-30b-a3b")
+MOE_SERVE_GEN = 16
+# card-against-CPU parity in f32 at each arch's full head layout (d_model,
+# H / KV, hd, rotary fraction, activation, virtual experts), with depth,
+# FFN width, vocabulary and expert count cut so that the CPU side runs in
+# seconds; top-k stays the arch's where it fits the cut expert count
+FAMILY_PARITY_ARCHS = FAMILY_ARCHS + ("grok-1-314b",)
+FAMILY_PARITY_CUT = dict(num_layers=PARITY_LAYERS, d_ff=512, vocab_size=4096,
+                         dtype="float32")
+FAMILY_PARITY_EXPERTS = 16
+NEAR_TIE = 1e-6
+
+
+@contextlib.contextmanager
+def moe_routes(keep_routes: bool = False):
+    """Record what each MoE sublayer's routing did while the block runs:
+    ``kept`` (a device count a call, read once at the end), ``assigned``,
+    ``busiest`` (the share of the call's choices that went to its k
+    busiest logical experts: k / E when the load is even, 1 when every
+    token picks the same k) and, with ``keep_routes``, each call's router
+    probabilities and experts on the host. Wraps
+    ``layers._route_and_dispatch``, which ``layers.moe`` looks up at each
+    call."""
+    from repro_torch.models import layers
+    real = layers._route_and_dispatch
+    rec = {"kept": [], "assigned": [], "busiest": [], "routes": []}
+
+    def recorded(xt, router, e, k, *args, **kwargs):
+        out = real(xt, router, e, k, *args, **kwargs)
+        keep, probs, expert = out[4], out[5], out[6]
+        rec["kept"].append(keep.sum())
+        rec["assigned"].append(keep.numel())
+        load = torch.bincount(expert.reshape(-1), minlength=e)
+        rec["busiest"].append(load.topk(k).values.sum() / expert.numel())
+        if keep_routes:
+            rec["routes"].append((probs.cpu(), expert.cpu()))
+        return out
+
+    layers._route_and_dispatch = recorded
+    try:
+        yield rec
+    finally:
+        layers._route_and_dispatch = real
+
+
+def dropped_share(rec: dict, calls: slice = slice(None)) -> float | None:
+    assigned = sum(rec["assigned"][calls])
+    if not assigned:
+        return None
+    return 1.0 - float(sum(int(k) for k in rec["kept"][calls])) / assigned
+
+
+def busiest_share(rec: dict) -> float | None:
+    """The mean over calls of ``busiest`` (see ``moe_routes``)."""
+    shares = [float(b) for b in rec["busiest"]]
+    return sum(shares) / len(shares) if shares else None
+
+
+def route_differences(cpu_routes: list, card_routes: list, k: int) -> dict:
+    """Routing decisions (token, choice) where the card and the CPU chose
+    another expert, and each such token's margin on the CPU: the smallest
+    gap between neighbours among its k + 1 largest router probabilities."""
+    differ, margins = 0, []
+    for (probs, want), (_, got) in zip(cpu_routes, card_routes):
+        rows = (want != got).any(dim=1)
+        differ += int((want != got).sum())
+        if rows.any():
+            top = probs[rows].sort(dim=-1, descending=True).values[:, :k + 1]
+            margins += (top[:, :-1] - top[:, 1:]).min(dim=1).values.tolist()
+    return dict(decisions=sum(int(e.numel()) for _, e in cpu_routes), differ=differ,
+                tokens_differ=len(margins), min_margin=min(margins, default=None),
+                max_margin=max(margins, default=None))
+
+
+def family_prefill(dev, arch: str, gen) -> int:
+    """One arch at full width and depth: init, a 32,768-token prefill
+    through kernel D (launches and time by route, peak memory with the
+    weights, for MoE the share of assignments capacity dropped); for
+    qwen3-moe also serve_loop at batch 4. Returns kernel D's launches in
+    the prefill."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = make_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated(dev)
+    model.prefill(torch.randint(0, cfg.vocab_size, (1, 512), device=dev, generator=gen))
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), device=dev, generator=gen)
+    ops.reset_launches()
+    with moe_routes() as rec:
+        logits, wall, attn_ms = timed_prefill(model, tokens)
+    launches = ops.LAUNCHES["flash_attention"]
+    sm90_launches = ops.LAUNCHES["flash_attention_sm90"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(logits.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"{arch}: prefill logits are not finite [1, {cfg.vocab_size}]")
+    total_ms = sum(attn_ms.values())
+    emit("lm_families", part="prefill", arch=arch, family=cfg.family,
+         params=sum(p.numel() for p in model.parameters()),
+         active_params=cfg.active_param_count(), dtype=cfg.dtype, layers=cfg.num_layers,
+         heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim], tokens=PREFILL_LEN,
+         init_s=init_s, seconds=wall, tokens_per_s=PREFILL_LEN / wall,
+         flash_attention_launches=launches, flash_attention_sm90_launches=sm90_launches,
+         flash_attention_ms=total_ms, flash_attention_share=total_ms / 1e3 / wall,
+         weight_bytes=weights, peak_bytes=peak, dropped_share=dropped_share(rec),
+         busiest_experts_share=busiest_share(rec),
+         logits_abs_max=float(logits.float().abs().max()))
+    if launches != cfg.num_layers or sm90_launches != cfg.num_layers:
+        fail(f"{arch}: prefill launched kernel D {launches} times, {sm90_launches} on the "
+             f"tensor cores; want all {cfg.num_layers} on the tensor cores")
+    if cfg.family == "moe":
+        # where an MoE prefill's device time goes, by kernel (the profiler
+        # adds host time; the device rows are the prefill's own)
+        wall_p, device_s, top = profile_device(
+            lambda: (model.prefill(tokens), torch.cuda.synchronize()))
+        emit("lm_families", part="prefill_profile", arch=arch, tokens=PREFILL_LEN,
+             wall_s=wall_p, device_s=device_s, device_busy_share=device_s / wall_p,
+             top_device_ms=top)
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+                                generator=gen)
+        with moe_routes() as rec:
+            out, prefill_s, decode_s = serve.serve_loop(model, prompts, MOE_SERVE_GEN)
+        prompt_calls = slice(0, SERVE_PROMPT * cfg.num_layers)
+        emit("lm_families", part="serve", arch=arch, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+             gen=MOE_SERVE_GEN, prefill_s=prefill_s, decode_s=decode_s,
+             prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_s,
+             decode_tokens_per_s=SERVE_BATCH * MOE_SERVE_GEN / decode_s,
+             dropped_share_prompt=dropped_share(rec, prompt_calls),
+             dropped_share_decode=dropped_share(rec, slice(prompt_calls.stop, None)),
+             busiest_experts_share=busiest_share(rec),
+             first_tokens=out[:, :8].tolist())
+        if out.shape != (SERVE_BATCH, MOE_SERVE_GEN) or \
+                not ((out >= 0) & (out < cfg.vocab_size)).all():
+            fail(f"{arch}: serve_loop gave tokens of shape {out.shape} or outside the vocabulary")
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_parity(dev, arch: str, gen) -> None:
+    """The arch's head layout with depth and widths cut (FAMILY_PARITY_CUT),
+    in f32: the card's prefill (kernel D) against the CPU's plain path on
+    the same weights, last logits within PARITY_TOL; a dense arch's card
+    prefill also against its own token-by-token decode. MoE is exempt from
+    the decode check (a prefill routes all tokens under one capacity,
+    decode a token a sequence, so the reference's two differ too); its
+    routing decisions that differ between the card and the CPU must each
+    be a near tie."""
+    full = get_config(arch)
+    cut = dict(FAMILY_PARITY_CUT)
+    if full.num_experts:
+        cut.update(num_experts=min(full.num_experts, FAMILY_PARITY_EXPERTS),
+                   experts_per_token=min(full.experts_per_token, FAMILY_PARITY_EXPERTS // 2))
+    cfg = dataclasses.replace(full, **cut)
+    cpu = make_model(cfg, device="cpu", seed=5)
+    card = make_model(cfg, seed=5)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (1, PARITY_LEN), device=dev, generator=gen)
+    with moe_routes(keep_routes=True) as cpu_rec:
+        want = cpu.prefill(tokens.cpu())
+    with moe_routes(keep_routes=True) as card_rec:
+        got = card.prefill(tokens)
+    err = float((got.cpu() - want).abs().max())
+    line = dict(arch=arch, layers=cfg.num_layers, heads=[cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim], d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+                experts=[cfg.num_experts, cfg.experts_per_token, cfg.moe_ffn_shards],
+                tokens=PARITY_LEN, dtype="float32", card_vs_cpu_max_abs_err=err,
+                logits_abs_max=float(want.abs().max()), tol=PARITY_TOL)
+    if not torch.allclose(got.cpu(), want, rtol=PARITY_TOL, atol=PARITY_TOL):
+        fail(f"{arch}: the card's prefill != the CPU's (max abs err {err})")
+    if cfg.family == "moe":
+        diff = route_differences(cpu_rec["routes"], card_rec["routes"], cfg.experts_per_token)
+        line.update(routing=diff, decode_check="exempt: MoE capacity differs between a "
+                    "prefill and a token-by-token decode, in the reference too")
+        if diff["tokens_differ"] and diff["max_margin"] >= NEAR_TIE:
+            fail(f"{arch}: the card routed a token otherwise than the CPU at margin "
+                 f"{diff['max_margin']} (not a near tie)")
+    else:
+        cache = card.init_cache(1, PARITY_LEN)
+        for i in range(PARITY_LEN):
+            step, cache = card.decode_step(tokens[:, i:i + 1], cache)
+        derr = float((got - step).abs().max())
+        line.update(prefill_vs_decode_max_abs_err=derr)
+        if not torch.allclose(got, step, rtol=PARITY_TOL, atol=PARITY_TOL):
+            fail(f"{arch}: prefill (kernel D) != token-by-token decode (max abs err {derr})")
+    emit("lm_families", part="parity", **line)
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def lm_families_phase(dev) -> int:
+    """Phase 7b; returns kernel D's launches in the four full prefills."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    t0 = time.perf_counter()
+    launches = sum(family_prefill(dev, arch, gen) for arch in FAMILY_ARCHS)
+    for arch in FAMILY_PARITY_ARCHS:
+        family_parity(dev, arch, gen)
+    emit("lm_families", part="summary", archs=list(FAMILY_ARCHS),
+         flash_attention_launches=launches, phase_s=time.perf_counter() - t0)
+    return launches
+
+
 # stream bytes per version, versions, and the largest index kernel C scans
 BASE, VERSIONS, BIG_N = 32 << 20, 4, 1 << 20
 
@@ -2458,7 +2844,7 @@ def main() -> int:
     del main_versions, small
     gc.collect()
     torch.cuda.empty_cache()
-    launches["flash_attention"] = lm_phase(dev)
+    launches["flash_attention"] = lm_phase(dev) + lm_families_phase(dev)
 
     sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed, "sim_topk": sim_topk,
                "flash_attention": flash_attn}

@@ -24,7 +24,7 @@
 ``scrub`` and the crash-script harness (``run_crash_script``,
 ``snapshot_dir``, ``check_crash_invariants``, ``abandon``, ``CrashRun``)
 stay in ``api.integrity`` and ``api.faults``, where the reference keeps
-them too. Not ported: the S3 client. The object store, observability and
+them too. The object store (with ``S3ObjectClient``), observability and
 serving names resolve lazily, as in the reference: ``python -m
 repro_torch.api.objectstore`` / ``... .observe`` must find their module
 not yet imported.
@@ -122,7 +122,8 @@ from repro_torch.api.config import (  # noqa: F401
 
 # name -> module of the names resolved on first access (PEP 562)
 _LAZY_EXPORTS = {
-    **dict.fromkeys(("LocalObjectStore", "ObjectStoreBackend"), "objectstore"),
+    **dict.fromkeys(("LocalObjectStore", "ObjectStoreBackend", "S3ObjectClient"),
+                    "objectstore"),
     **dict.fromkeys(("MetricsRegistry", "Observability", "Tracer",
                      "parse_prometheus_text"), "observe"),
     **dict.fromkeys(("CircuitBreaker", "CircuitOpenError", "DedupServer",

@@ -19,10 +19,10 @@ The serving knobs (``restore_*``, ``verify_reads``, ``retry_deadline``)
 reach the backend factory as the reference forwards them; ``trace_path`` /
 ``trace_ring_events`` reach the store, and ``build_server`` wraps the store
 in a ``DedupServer`` sized by ``server_workers`` / ``server_args`` /
-``tenant_args``. Backends: ``"memory"``, ``"file"`` and ``"objectstore"``;
-``"s3"`` needs boto3 and is not ported (its lookup raises ``KeyError``).
-The one knob not ported, ``detector_args`` ``"fused": False`` (ROADMAP
-Queue 1 item 5), is refused by the ``"card"`` factory.
+``tenant_args``. Backends: ``"memory"``, ``"file"``, ``"objectstore"`` and
+``"s3"`` (``backend_args`` ``{"bucket": ..., "prefix": ...}``; it needs
+boto3 and raises the reference's ``RuntimeError`` without it). Every
+knob of the reference builds.
 """
 from __future__ import annotations
 

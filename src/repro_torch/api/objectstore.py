@@ -1,7 +1,6 @@
 """Object-store container backend, its fault-injecting local fake and the
 ``cp``/``ls``/``stat``/``verify``/``scrub`` CLI (port of
-``repro.api.objectstore``; ``S3ObjectClient`` and the ``"s3"`` backend are
-not ported: boto3 is on neither machine).
+``repro.api.objectstore``).
 
   CLI                 ``python -m repro_torch.api.objectstore cp/ls/stat/
                       verify/scrub``: copy local files into a deduplicated
@@ -27,6 +26,10 @@ not ported: boto3 is on neither machine).
                       ``put`` / ``list`` / ``head`` / ``delete_object``)
                       with injectable per-request latency, bandwidth
                       caps, and transient-error schedules.
+  S3ObjectClient      the same object API over a boto3 S3 client
+                      (``backend="s3"``); boto3 is imported only when no
+                      ``client=`` is given, so an in-process fake of the
+                      boto3 surface drives it without boto3 or a network.
   DiskTierCache       a byte-budgeted local-disk chunk tier in front of
                       the remote store.
 
@@ -273,6 +276,102 @@ class LocalObjectStore:
             self._path(key).unlink()
         except FileNotFoundError:
             pass
+
+
+class S3ObjectClient:
+    """boto3 adapter with the ``LocalObjectStore`` surface.
+
+    Import of boto3 is deferred to construction — the dependency is
+    optional and the rest of this module (backend, fake, CLI) must work
+    without it. Select via ``DedupConfig(backend="s3", backend_args=
+    {"bucket": ..., "prefix": ...})``. The tests drive it through
+    ``client=`` with an in-process fake of the boto3 surface; a real
+    bucket needs boto3 and a network.
+    """
+
+    def __init__(self, bucket: str, prefix: str = "",
+                 client=None) -> None:
+        if client is None:
+            try:
+                import boto3
+            except ImportError as e:         # pragma: no cover
+                raise RuntimeError(
+                    "backend 's3' needs boto3, which is not installed; "
+                    "use backend 'objectstore' (the local fake) instead"
+                ) from e
+            client = boto3.client("s3")      # pragma: no cover
+        self._s3 = client
+        self.bucket = bucket
+        self.prefix = prefix.strip("/")
+
+    def _key(self, key: str) -> str:
+        return f"{self.prefix}/{key}" if self.prefix else key
+
+    def _wrap(self, err) -> Exception:
+        # 429/5xx and throttling codes are retryable; 404 maps to the
+        # KeyError contract; anything else propagates untouched
+        code = (getattr(err, "response", None) or {}).get(
+            "ResponseMetadata", {}).get("HTTPStatusCode")
+        if code in (429, 500, 502, 503, 504):
+            return TransientError(code, str(err))
+        return err
+
+    def put(self, key: str, data: bytes) -> None:
+        try:
+            self._s3.put_object(Bucket=self.bucket, Key=self._key(key),
+                                Body=data)
+        except Exception as e:               # pragma: no cover
+            raise self._wrap(e) from e
+
+    def get(self, key: str) -> bytes:
+        try:
+            resp = self._s3.get_object(Bucket=self.bucket,
+                                       Key=self._key(key))
+            return resp["Body"].read()
+        except Exception as e:
+            if type(e).__name__ in ("NoSuchKey", "404"):
+                raise KeyError(key) from None
+            raise self._wrap(e) from e
+
+    def get_range(self, key: str, start: int, length: int) -> bytes:
+        try:
+            resp = self._s3.get_object(
+                Bucket=self.bucket, Key=self._key(key),
+                Range=f"bytes={start}-{start + length - 1}")
+            return resp["Body"].read()
+        except Exception as e:
+            if type(e).__name__ in ("NoSuchKey", "404"):
+                raise KeyError(key) from None
+            raise self._wrap(e) from e
+
+    def head(self, key: str) -> int | None:
+        try:
+            resp = self._s3.head_object(Bucket=self.bucket,
+                                        Key=self._key(key))
+            return int(resp["ContentLength"])
+        except Exception as e:
+            code = (getattr(e, "response", None) or {}).get(
+                "ResponseMetadata", {}).get("HTTPStatusCode")
+            if code == 404:
+                return None
+            raise self._wrap(e) from e
+
+    def list(self, prefix: str = "") -> list[tuple[str, int]]:
+        out = []
+        paginator = self._s3.get_paginator("list_objects_v2")
+        full = self._key(prefix)
+        strip = len(self.prefix) + 1 if self.prefix else 0
+        for page in paginator.paginate(Bucket=self.bucket, Prefix=full):
+            for obj in page.get("Contents", ()):
+                out.append((obj["Key"][strip:], int(obj["Size"])))
+        out.sort()
+        return out
+
+    def delete_object(self, key: str) -> None:
+        try:
+            self._s3.delete_object(Bucket=self.bucket, Key=self._key(key))
+        except Exception as e:               # pragma: no cover
+            raise self._wrap(e) from e
 
 
 class DiskTierCache:
@@ -1096,11 +1195,19 @@ class ObjectStoreBackend(PlannedChainReader):
                     self._recipe_lens[h] = [int(n) for n in lens]
 
 
+def _s3_backend(bucket: str, prefix: str = "", **kwargs):
+    """Registry factory for ``DedupConfig(backend="s3")``: a real boto3
+    client behind the same ObjectStoreBackend (boto3 gated at call time)."""
+    return ObjectStoreBackend(client=S3ObjectClient(bucket, prefix),
+                              **kwargs)
+
+
 # registered only under the module's canonical name: run as ``python -m``
 # the module executes once more as __main__, and its __main__ block hands
-# over to the canonical module, which registers the backend exactly once
+# over to the canonical module, which registers the backends exactly once
 if __name__ != "__main__":
     register_backend("objectstore")(ObjectStoreBackend)
+    register_backend("s3")(_s3_backend)
 
 
 _CATALOG = "catalog.json"

@@ -7,9 +7,7 @@ anywhere in the port registers into the reference's registry.
     detectors       "card", "finesse", "n-transform", "dedup-only"
     indexes         "exact" (cosine top-1), "banded-lsh" (SimHash bands)
     chunkers        "fastcdc" (a ChunkerConfig factory)
-    backends        "memory", "file", "objectstore" ("s3" needs boto3 and
-                    is not ported: its lookup raises a KeyError that says
-                    so)
+    backends        "memory", "file", "objectstore", "s3"
     policies        "eager", "threshold", "never" (api/lifecycle.py)
     cache policies  "lru", "arc" (decode-cache eviction, api/restore.py)
 
@@ -36,13 +34,6 @@ _POLICIES: dict[str, Callable[..., Any]] = {}
 _CACHE_POLICIES: dict[str, Callable[..., Any]] = {}
 
 _builtins_loaded = False
-
-# names the reference registers that the port does not have -> why; their
-# lookup raises the port's KeyError with this reason
-_UNPORTED_NAMES = {
-    ("backend", "s3"): "backend 's3' needs boto3 (S3ObjectClient), which is "
-                       "not installed, and is not ported; use 'objectstore'",
-}
 
 
 def _ensure_builtins() -> None:
@@ -78,9 +69,6 @@ def _make_get(table: dict[str, Callable[..., Any]],
         try:
             return table[name]
         except KeyError:
-            why = _UNPORTED_NAMES.get((kind, name))
-            if why is not None:
-                raise KeyError(why) from None
             raise KeyError(
                 f"unknown {kind} {name!r}; available: "
                 f"{sorted(table)}") from None

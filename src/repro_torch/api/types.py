@@ -49,6 +49,10 @@ class DetectBatch:
     def __len__(self) -> int:
         return len(self.chunks)
 
+    @property
+    def offsets(self) -> np.ndarray:
+        return np.asarray([c.offset for c in self.chunks], np.int64)
+
 
 @dataclasses.dataclass
 class DetectResult:

@@ -5,11 +5,12 @@ Layout:  <dir>/step_<N>/
             manifest.json   (per-leaf shape/dtype/digest, in flatten order)
             <leaf_id>.bin   (raw little-endian bytes; bf16 stored as u16)
 
-A tree is nested dicts, lists and tuples (``None`` holds no leaf) of
-tensors, numpy arrays or Python scalars; a flat ``state_dict`` is one
-dict. Leaves are flattened in JAX's order: a dict's keys sorted (an
-``OrderedDict`` in its own order), sequences in order; each leaf's
-``path`` is in ``jax.tree_util.keystr`` form (``['params']['w']``). So
+A tree is nested dicts, lists, tuples and NamedTuples (``None`` holds no
+leaf) of tensors, numpy arrays or Python scalars; a flat ``state_dict``
+is one dict. Leaves are flattened in JAX's order: a dict's keys sorted
+(an ``OrderedDict`` in its own order), sequences and a NamedTuple's
+fields in order; each leaf's ``path`` is in ``jax.tree_util.keystr``
+form (``['params']['w']``, a NamedTuple field ``.mu``). So
 the blobs, their ids and the manifest are the reference's for the same
 tree, except ``treedef``: the reference writes JAX's ``PyTreeDef``
 string there, the port its own description of the structure. Neither
@@ -37,9 +38,15 @@ import numpy as np
 import torch
 
 
+def _is_namedtuple(node: Any) -> bool:
+    return isinstance(node, tuple) and hasattr(type(node), "_fields")
+
+
 def _children(node: Any) -> list[tuple[str, Any]] | None:
     """(key string, child) pairs of a container node in flatten order, or
     None for a leaf."""
+    if _is_namedtuple(node):
+        return [(f".{f}", v) for f, v in zip(node._fields, node)]
     if isinstance(node, collections.OrderedDict):
         return [(f"[{k!r}]", v) for k, v in node.items()]
     if isinstance(node, dict):
@@ -66,6 +73,9 @@ def structure(tree: Any) -> str:
         return "{" + ", ".join(f"{k[1:-1]}: {structure(v)}" for k, v in kids) + "}"
     if isinstance(tree, list):
         return "[" + ", ".join(structure(v) for v in tree) + "]"
+    if _is_namedtuple(tree):
+        inner = ", ".join(f"{f}={structure(v)}" for f, v in zip(tree._fields, tree))
+        return f"{type(tree).__name__}({inner})"
     if isinstance(tree, tuple):
         inner = ", ".join(structure(v) for v in tree)
         return f"({inner},)" if len(tree) == 1 else f"({inner})"
@@ -84,7 +94,9 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
         return out
     if isinstance(like, (list, tuple)):
         items = [_unflatten(v, leaves) for v in like]
-        return items if isinstance(like, list) else type(like)(items)
+        if isinstance(like, list):
+            return items
+        return type(like)(*items) if _is_namedtuple(like) else type(like)(items)
     return None
 
 

@@ -111,6 +111,18 @@ class ModelConfig:
             total += self.num_layers * attn  # decoder cross-attn
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE counts only routed experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        mlp = 3 * d * f if self.act == "swiglu" else 2 * d * f
+        moe_layers = sum(
+            1 for layer in range(self.num_layers)
+            if layer % self.moe_layer_period == self.moe_layer_period - 1)
+        dense_total = self.param_count() - moe_layers * self.num_experts * mlp
+        return dense_total + moe_layers * self.experts_per_token * mlp
+
     def _ssm_layer_params(self) -> int:
         d, n = self.d_model, self.ssm_state
         d_inner = 2 * d
@@ -148,7 +160,9 @@ ARCH_IDS = (
 )
 
 # the architectures whose slice is ported; the rest raise in get_config
-_PORTED = {"granite-8b": "repro_torch.configs.granite_8b"}
+_PORTED = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
+           for a in ("granite-8b", "granite-3-8b", "phi3-medium-14b", "chatglm3-6b",
+                     "qwen3-moe-30b-a3b", "grok-1-314b")}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -2,8 +2,8 @@
 
 ``context_model_from_params`` builds the port's context model from the
 reference's trained ``w [M, D]`` and ``u [D, M]`` (``pinv(U)`` is
-recomputed here). ``lm_params_from_jax`` builds the port's dense LM from
-the reference's param tree. ``check_constants`` asserts that the port's
+recomputed here). ``lm_params_from_jax`` builds the port's dense or MoE
+LM from the reference's param tree. ``check_constants`` asserts that the port's
 own copies of the hashing constants equal arrays taken from the
 reference, which catches drift between the two packages.
 """
@@ -42,17 +42,20 @@ def check_constants(gear_table: np.ndarray, ms_a: np.ndarray, ms_b: np.ndarray) 
 
 def lm_params_from_jax(params: dict, cfg: ModelConfig,
                        device: str | torch.device | None = None) -> Model:
-    """The port's ``Model`` holding the reference's dense-LM params.
+    """The port's ``Model`` holding the reference's LM params.
 
     ``params`` is the reference's tree with numpy leaves (any float dtype;
     bf16 goes through f32 exactly): ``embed`` [V, d], ``lm_head`` [d, V],
     ``final_norm.scale`` [d], and ``blocks[0]``, the one period-position of
-    a dense stack, with every leaf stacked over the L layers (``ln1``,
-    ``attn.wq/wk/wv/wo``, ``ln2``, ``mlp.*``). Raises on a missing leaf or
-    a shape that does not fit ``cfg``."""
+    the stack, with every leaf stacked over the L layers (``ln1``,
+    ``attn.wq/wk/wv/wo``, ``ln2``, and ``mlp.*`` or ``moe.router`` /
+    ``moe.e_*``). Raises on a missing leaf or a shape that does not fit
+    ``cfg``."""
     model = Model(cfg, device=device)
     if len(params["blocks"]) != 1:
-        raise ValueError(f"want one stacked period-position, got {len(params['blocks'])}")
+        raise ValueError(
+            f"want one stacked period-position, got {len(params['blocks'])}: every ported "
+            "arch has block period 1 (layers of one kind), so blocks[0] holds all L layers")
     stack = params["blocks"][0]
     leaves = {"embed": params["embed"], "final_norm.scale": params["final_norm"]["scale"]}
     if "lm_head" in params:

@@ -16,7 +16,7 @@ wall time of the three stages.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Protocol, Sequence
 
 import numpy as np
 import torch
@@ -27,6 +27,20 @@ from repro_torch.api.store import DedupStore, chunk_with
 from repro_torch.api.types import DetectBatch, DetectResult, StoreStats
 from repro_torch.core import baselines, chunking, context_model, features, similarity
 from repro_torch.kernels import ingest, ops
+
+
+class Detector(Protocol):
+    """v0 single-call protocol; still accepted everywhere (``run_detect``
+    falls back to it for detectors that are not staged). ``stream_hashes``
+    is the chunker's scan of the stream (``kernels.ingest.StreamScan``)."""
+
+    name: str
+
+    def fit(self, training_streams: Sequence[bytes],
+            cfg: chunking.ChunkerConfig) -> None: ...
+
+    def detect(self, chunks: list[chunking.Chunk], ids: np.ndarray,
+               is_new: np.ndarray, stream_hashes: Any) -> np.ndarray: ...
 
 
 class NullDetector(LegacyDetectMixin):

@@ -92,6 +92,10 @@ class CosineIndex:
         self._buf = buf
         self._ids = np.concatenate([self._ids, np.zeros(new_cap - cap, np.int64)])
 
+    def insert(self, feature, chunk_id: int) -> None:
+        self.insert_batch(torch.as_tensor(feature, dtype=torch.float32)[None],
+                          np.asarray([chunk_id], np.int64))
+
     def insert_batch(self, features: torch.Tensor, chunk_ids: np.ndarray) -> None:
         k = features.shape[0]
         self._grow(k)

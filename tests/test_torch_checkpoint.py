@@ -7,6 +7,7 @@ and counts at ``tests/test_checkpoint.py``'s drift."""
 import collections
 import json
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -246,3 +247,69 @@ def test_dedup_store_matches_reference(byte_plane):
     back = ref.restore(to_jax(_ckpt_np_tree(0)), step=2)
     assert np.array_equal(np.asarray(back["params"]["w"]).view(np.uint16),
                           history[2]["params"]["w"][1])
+
+
+# --- NamedTuple trees (a train state's shape) ---------------------------------------
+
+NT = collections.namedtuple("NT", "x y")
+Inner = collections.namedtuple("Inner", "mu nu count")
+
+
+def _nt_trees(kind):
+    """(port tree, reference tree) of the same float32 / int32 leaves."""
+    rng = np.random.default_rng(5)
+    if kind == "flat":
+        leaves = [np.ones(1, np.float32), np.zeros(2, np.float32)]
+        build = lambda a: NT(*a)
+    else:
+        leaves = [rng.standard_normal((3, 4)).astype(np.float32),
+                  rng.standard_normal(5).astype(np.float32),
+                  np.asarray(9, np.int32), rng.standard_normal(2).astype(np.float32)]
+        build = lambda a: {"opt": Inner(a[0], {"b": a[1]}, a[2]), "params": NT(a[3], None)}
+    return (build([torch.from_numpy(a.copy()) for a in leaves]),
+            build([jnp.asarray(a) for a in leaves]))
+
+
+@pytest.mark.parametrize("kind", ["flat", "nested"])
+def test_namedtuple_trees_save_and_restore_as_the_reference(tmp_path, kind):
+    """A NamedTuple's fields get JAX's ``.field`` paths; both packages write
+    the same blobs and manifest (but treedef), each restores the other's
+    checkpoint, and the port rebuilds the NamedTuple type."""
+    mine, ref = _nt_trees(kind)
+    blobs, manifest = store.serialize(mine)
+    ref_blobs, ref_manifest = ref_store.serialize(ref)
+    assert blobs == ref_blobs and manifest["leaves"] == ref_manifest["leaves"]
+    paths = [m["path"] for m in manifest["leaves"]]
+    assert paths == ([".x", ".y"] if kind == "flat" else
+                     ["['opt'].mu", "['opt'].nu['b']", "['opt'].count", "['params'].x"])
+    assert "NT(" in manifest["treedef"]
+    save(tmp_path / "port", mine, step=1)
+    ref_store.save(tmp_path / "ref", ref, step=1)
+    for src in ("port", "ref"):
+        got = restore(tmp_path / src, mine, step=1)
+        want = mine if kind == "flat" else mine["opt"]
+        have = got if kind == "flat" else got["opt"]
+        assert type(have) is type(want) and have._fields == want._fields
+        for (p, g), (_, w) in zip(store.flatten_with_path(got), store.flatten_with_path(mine)):
+            assert torch.equal(g, w), p
+        back = ref_store.restore(tmp_path / src, ref, step=1)
+        for g, w in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(ref)):
+            assert np.array_equal(np.asarray(g), np.asarray(w))
+
+
+def test_namedtuple_tree_through_the_dedup_store():
+    """``DedupCheckpointStore.restore`` of a NamedTuple-in-dict tree, as
+    the reference's: the same handles and manifests, the type rebuilt."""
+    mine_tree, ref_tree = _nt_trees("nested")
+    mine, ref = DedupCheckpointStore(device="cpu"), RefDedupCheckpointStore()
+    for step in range(2):
+        mine.save(mine_tree, step)
+        ref.save(ref_tree, step)
+    for step in range(2):
+        (h, man), (rh, rman) = mine._steps[step], ref._steps[step]
+        assert h == rh and man["leaves"] == rman["leaves"]
+    got = mine.restore(mine_tree, step=1)
+    assert isinstance(got["opt"], Inner) and isinstance(got["params"], NT)
+    assert got["params"].y is None
+    for (_, g), (_, w) in zip(store.flatten_with_path(got), store.flatten_with_path(mine_tree)):
+        assert torch.equal(g, w)

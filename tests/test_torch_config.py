@@ -149,7 +149,8 @@ def test_registry_listings():
     assert registry.available_detectors() == ["card", "dedup-only", "finesse", "n-transform"]
     assert registry.available_indexes() == ["banded-lsh", "exact"]
     assert registry.available_chunkers() == ["fastcdc"]
-    assert registry.available_backends() == ["file", "memory", "objectstore"]
+    assert registry.available_backends() == ["file", "memory", "objectstore", "s3"] == \
+        ref_registry.available_backends()
     assert registry.available_policies() == ["eager", "never", "threshold"]
     assert registry.available_cache_policies() == ["arc", "lru"]
     assert registry.get_chunker("fastcdc") is chunking.ChunkerConfig
@@ -342,17 +343,21 @@ def test_policy_args_a_policy_does_not_take_raise_as_the_reference():
 
 
 @pytest.mark.parametrize("d,err,match", [
-    ({"backend": "s3"}, KeyError, "backend 's3' needs boto3 .* not ported"),
+    ({"backend": "s3"}, TypeError,
+     "_s3_backend\\(\\) missing 1 required positional argument: 'bucket'"),
     ({"backend": "nope"}, KeyError,
-     "unknown backend 'nope'; available: \\['file', 'memory', 'objectstore'\\]"),
+     "unknown backend 'nope'; available: \\['file', 'memory', 'objectstore', 's3'\\]"),
     ({"detector_args": {"index": "nope"}}, KeyError,
      "unknown index 'nope'; available: \\['banded-lsh', 'exact'\\]"),
     ({"chunker": "rabin"}, KeyError, "unknown chunker"),
 ], ids=["s3", "nope", "banded-lsh", "chunker"])
 def test_unregistered_component_raises(d, err, match):
+    """Each raises what the reference raises, with the same text."""
+    full = {"detector": "card", **d}
     with pytest.raises(err, match=match):
-        config.build_store(config.DedupConfig.from_dict({"detector": "card", **d}),
-                           device="cpu")
+        ref_api.build_store(ref_api.DedupConfig.from_dict(full))
+    with pytest.raises(err, match=match):
+        config.build_store(config.DedupConfig.from_dict(full), device="cpu")
 
 
 @pytest.mark.parametrize("backend,cls", [("file", "FileBackend"),

@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.api import store as ref_store
+from repro.api import types as ref_types
+from repro.core import chunking as ref_chunking
+from repro.core import pipeline as ref_pipeline
 from repro_torch.api import detect
 from repro_torch.api.store import DedupStore, chunk_with
 from repro_torch.api.types import DetectBatch
@@ -164,3 +168,61 @@ def test_null_detector_verdicts():
     res = det.score(None, batch)
     assert res.base_ids.dtype == np.int64 and (res.base_ids == -1).all()
     assert len(res) == len(batch)
+
+
+def test_detect_batch_offsets_match_reference():
+    """``DetectBatch.offsets``: each chunk's stream offset, as the
+    reference's own CARD extract reads it."""
+    versions = _versions()
+    ref_cfg = ref_chunking.ChunkerConfig(avg_size=CCFG.avg_size)
+    for batch, v in zip(_batches(versions), versions):
+        ref_chunks, hashes = ref_store.chunk_with(ref_cfg, v)
+        ref_batch = ref_types.DetectBatch(chunks=ref_chunks, ids=batch.ids,
+                                          is_new=batch.is_new, stream_hashes=hashes)
+        assert batch.offsets.dtype == ref_batch.offsets.dtype == np.int64
+        np.testing.assert_array_equal(batch.offsets, ref_batch.offsets)
+        assert batch.offsets[0] == 0 and (np.diff(batch.offsets) > 0).all()
+
+
+def _v0_detector(protocol):
+    """A detector with only the v0 protocol's ``fit`` / ``detect``: a new
+    chunk deltas against the chunk at its place in the previous stream."""
+    class SamePlace(protocol):
+        name = "same-place"
+
+        def fit(self, training_streams, cfg):
+            self.prev = None
+
+        def detect(self, chunks, ids, is_new, stream_hashes):
+            base = np.full(len(ids), -1, np.int64)
+            if self.prev is not None:
+                at = np.minimum(np.arange(len(ids)), len(self.prev) - 1)
+                base[is_new] = self.prev[at[is_new]]
+            self.prev = ids.copy()
+            return base
+    return SamePlace()
+
+
+def test_v0_detector_protocol_matches_reference():
+    """The v0 ``Detector`` protocol has the reference's members and
+    signatures, and a detector written against it drives both packages'
+    stores to the same records and DCR."""
+    import inspect
+    for member in ("fit", "detect"):
+        got = inspect.signature(getattr(pipeline.Detector, member)).parameters
+        want = inspect.signature(getattr(ref_pipeline.Detector, member)).parameters
+        assert list(got) == list(want)
+    assert pipeline.Detector.__annotations__ == {"name": "str"} == \
+        ref_pipeline.Detector.__annotations__
+    versions = _versions()
+    mine = DedupStore(_v0_detector(pipeline.Detector), CCFG, device="cpu")
+    ref = ref_store.DedupStore(_v0_detector(ref_pipeline.Detector),
+                               ref_chunking.ChunkerConfig(avg_size=CCFG.avg_size))
+    for store in (mine, ref):
+        store.fit(versions[:1])
+        for v in versions:
+            store.ingest(v)
+    assert mine.stats.delta_chunks > 0
+    assert (mine.stats.dcr, mine.stats.delta_chunks, mine.stats.raw_chunks) == (
+        ref.stats.dcr, ref.stats.delta_chunks, ref.stats.raw_chunks)
+    assert [mine.restore(h) for h in range(3)] == list(versions)

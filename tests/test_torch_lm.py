@@ -1,7 +1,12 @@
-"""The dense-LM slice of the port (configs, layers, transformer, serving,
+"""The LM slice of the port (configs, layers, transformer, serving,
 convert) against the JAX package on the CPU: granite-8b ``reduced()`` (4
 layers, d 128, 4 heads, 1 KV head) in f32, with the reference's params
-carried across by ``convert.lm_params_from_jax``.
+carried across by ``convert.lm_params_from_jax``; then the ``reduced()``
+configs of granite-3-8b, phi3-medium-14b, chatglm3-6b, qwen3-moe-30b-a3b
+and grok-1-314b (MoE, GeLU experts, two virtual experts each), and small
+custom configs at GQA groups 8 and 16 and chatglm's half rotary (max
+errors measured there: forward 8.5e-6, decode 4.3e-6, aux loss 4.8e-7,
+held to the same tolerances).
 
 Tolerances, each from a measured max error on these inputs (logits of
 magnitude up to 4.3):
@@ -33,27 +38,31 @@ from repro.configs import get_config as ref_get_config
 from repro.launch import serve as ref_serve
 from repro.models import layers as ref_layers
 from repro.models import make_model as ref_make_model
+from repro.models import transformer as ref_transformer
 from repro_torch import convert
 from repro_torch.configs import base as configs
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import Model, make_model
-from repro_torch.models import layers
+from repro_torch.models import layers, transformer
 
 torch.set_num_threads(1)
 
 F32_TOL = 5e-5
 BF16_TOL = 2e-2
+# the archs this slice adds beside granite-8b
+NEW_ARCHS = ("granite-3-8b", "phi3-medium-14b", "chatglm3-6b", "qwen3-moe-30b-a3b",
+             "grok-1-314b")
 
 
-def _cfgs(dtype):
-    ref = dataclasses.replace(ref_get_config("granite-8b").reduced(), dtype=dtype)
+def _cfgs(dtype, ref=None):
+    ref = dataclasses.replace(ref or ref_get_config("granite-8b").reduced(), dtype=dtype)
     return ref, configs.ModelConfig(**dataclasses.asdict(ref))
 
 
-def _pair(dtype, seed=0):
+def _pair(dtype, seed=0, ref_cfg=None):
     """(reference config, model, params) and the port's model holding them."""
-    ref_cfg, cfg = _cfgs(dtype)
+    ref_cfg, cfg = _cfgs(dtype, ref_cfg)
     ref = ref_make_model(ref_cfg)
     params = ref.init(jax.random.PRNGKey(seed))
     leaves = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), params)
@@ -81,11 +90,18 @@ def test_config_copy_matches_the_reference():
     port = configs.get_config("granite-8b")
     assert dataclasses.asdict(port) == dataclasses.asdict(ref_get_config("granite-8b"))
     assert port.head_dim == 128 and port.reduced().num_kv_heads == 1
+    for arch in NEW_ARCHS:
+        assert dataclasses.asdict(configs.get_config(arch)) == \
+            dataclasses.asdict(ref_get_config(arch)), arch
     for arch in ARCH_IDS:
         ref = ref_get_config(arch)
         mine = configs.ModelConfig(**dataclasses.asdict(ref))
         assert mine.param_count() == ref.param_count(), arch
+        assert mine.active_param_count() == ref.active_param_count(), arch
         assert dataclasses.asdict(mine.reduced()) == dataclasses.asdict(ref.reduced()), arch
+        assert [dataclasses.astuple(k) for k in transformer.layer_kinds(mine)] == \
+            [dataclasses.astuple(k) for k in ref_transformer.layer_kinds(ref)], arch
+        assert transformer.block_period(mine) == ref_transformer.block_period(ref), arch
     assert configs.get_shape("prefill_32k").seq_len == 32_768
 
 
@@ -111,7 +127,7 @@ def test_rope_uploads_its_frequencies_once_per_device():
     assert layers._freqs_on.cache_info().misses == 1
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-130m", "whisper-base",
+@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-base",
                                   "jamba-v0.1-52b", "llama-3.2-vision-11b"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError):
@@ -231,14 +247,105 @@ def test_prefill_goes_through_the_kernel_wrapper(f32, tokens, monkeypatch):
     assert len(calls) == 4 and ops.LAUNCHES["flash_attention"] == 0
 
 
-@pytest.mark.parametrize("fault", ["shape", "layers", "missing"])
-def test_lm_params_from_jax_rejects_a_wrong_tree(f32, fault):
-    params = jax.tree_util.tree_map(np.asarray, f32[2])
+@pytest.mark.parametrize("fault", ["shape", "layers", "missing", "moe_missing",
+                                   "moe_shape", "mlp_for_moe", "two_positions"])
+def test_lm_params_from_jax_rejects_a_wrong_tree(f32, moe_pair, fault):
+    src, cfg = (f32, _cfgs("float32")[1]) if not fault.startswith(("moe", "mlp")) else (
+        moe_pair, configs.ModelConfig(**dataclasses.asdict(moe_pair[0])))
+    params = jax.tree_util.tree_map(np.asarray, src[2])
+    block = params["blocks"][0]
     if fault == "shape":
-        params["blocks"][0]["attn"]["wq"] = params["blocks"][0]["attn"]["wq"][:, :, :2]
+        block["attn"]["wq"] = block["attn"]["wq"][:, :, :2]
     elif fault == "layers":
-        params["blocks"][0]["mlp"]["w_up"] = params["blocks"][0]["mlp"]["w_up"][:3]
-    else:
+        block["mlp"]["w_up"] = block["mlp"]["w_up"][:3]
+    elif fault == "missing":
         del params["lm_head"]
+    elif fault == "moe_missing":
+        del block["moe"]["e_up"]
+    elif fault == "moe_shape":
+        block["moe"]["e_gate"] = block["moe"]["e_gate"][:, :2]
+    elif fault == "mlp_for_moe":
+        block["mlp"] = block.pop("moe")
+    else:
+        params["blocks"] = [block, block]
     with pytest.raises(ValueError):
-        convert.lm_params_from_jax(params, _cfgs("float32")[1], device="cpu")
+        convert.lm_params_from_jax(params, cfg, device="cpu")
+
+
+# --- the archs of this slice: reduced() configs and custom head layouts -------------
+
+# (name, heads, kv heads, rope fraction): GQA groups 8 and 16 (the full
+# chatglm3's 32 / 2), which every arch's reduced() config (4 / 1) never
+# reaches, and chatglm's half rotary at group 16
+CUSTOM_HEADS = [("g8", 16, 2, 1.0), ("g16", 16, 1, 1.0), ("g16_rope_half", 32, 2, 0.5)]
+
+
+def _ref_cfg(name):
+    if name == "gelu_mlp":          # a dense stack with GeLU MLPs (grok's activation)
+        return dataclasses.replace(ref_get_config("granite-8b").reduced(),
+                                   name="custom-gelu", num_layers=2, act="gelu")
+    for tag, h, kv, frac in CUSTOM_HEADS:
+        if name == tag:
+            return dataclasses.replace(
+                ref_get_config("chatglm3-6b").reduced(), name=f"custom-{tag}", num_layers=2,
+                d_model=h * 16, num_heads=h, num_kv_heads=kv, rope_fraction=frac)
+    return ref_get_config(name).reduced()
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    return _pair("float32", ref_cfg=ref_get_config("qwen3-moe-30b-a3b").reduced())
+
+
+@pytest.fixture(scope="module",
+                params=list(NEW_ARCHS) + [c[0] for c in CUSTOM_HEADS] + ["gelu_mlp"])
+def arch_pair(request):
+    if request.param == "qwen3-moe-30b-a3b":
+        return request.getfixturevalue("moe_pair")
+    return _pair("float32", ref_cfg=_ref_cfg(request.param))
+
+
+def test_arch_forward_prefill_and_aux_match_reference(arch_pair, tokens):
+    ref_cfg, ref, params, port = arch_pair
+    want, want_aux = jax.jit(lambda p, t: ref.forward(p, t, remat=False))(
+        params, jnp.asarray(tokens))
+    got, aux = port.logits_and_aux(torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5, atol=1e-7)
+    assert (float(aux) > 0) == (ref_cfg.family == "moe")
+    pre = port.prefill(torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(pre, np.asarray(want)[:, -1], rtol=0, atol=F32_TOL)
+
+
+def test_arch_decode_steps_match_reference(arch_pair, tokens):
+    """Token by token, MoE included: at decode the capacity is the
+    reference's at t = B (it drops assignments there too)."""
+    ref_cfg, ref, params, port = arch_pair
+    cache, mine = ref.init_cache(2, 8), port.init_cache(2, 8)
+    dec = jax.jit(ref.decode_step)
+    for i in range(6):
+        want, cache = dec(params, jnp.asarray(tokens[:, i:i + 1]), cache)
+        got, mine = port.decode_step(torch.from_numpy(tokens[:, i:i + 1]), mine)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
+
+
+def test_dense_arch_prefill_matches_own_decode(arch_pair, tokens):
+    """Kernel D's path against the dense cached path (a dense stack only:
+    an MoE prefill routes all B*T tokens under one capacity, decode B at a
+    time, so the two differ in the reference too)."""
+    ref_cfg, _, _, port = arch_pair
+    if ref_cfg.family == "moe":
+        assert transformer.layer_kinds(port.cfg)[0].moe
+        return
+    full = port(torch.from_numpy(tokens[:, :6])).numpy()
+    cache = port.init_cache(2, 6)
+    for i in range(6):
+        logit, cache = port.decode_step(torch.from_numpy(tokens[:, i:i + 1]), cache)
+        np.testing.assert_allclose(logit.numpy(), full[:, i], rtol=0, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_serve_main_runs_each_arch_on_the_cpu(arch, capsys):
+    assert serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "3", "--gen", "2"]) == 0
+    assert f"arch={arch}-reduced" in capsys.readouterr().out

@@ -232,3 +232,26 @@ def test_cosine_index_use_kernel(monkeypatch):
     monkeypatch.setattr(similarity.ops, "resolve_device", lambda device: torch.device("cuda", 0))
     with pytest.raises(ValueError, match="use_kernel=False"):
         similarity.CosineIndex(50, use_kernel=False)
+
+
+def test_cosine_insert_matches_reference():
+    """``CosineIndex.insert`` one row at a time, mixed with
+    ``insert_batch``, holds the reference's rows and ids and answers its
+    queries (past kernel C's gate too)."""
+    rows = _unit_rows(7, 700)
+    mine = similarity.CosineIndex(50, device="cpu")
+    ref = ref_similarity.CosineIndex(50, use_kernel=False)
+    for index, wrap in ((mine, torch.from_numpy), (ref, lambda a: a)):
+        for i in range(5):
+            index.insert(wrap(rows[i]), 100 + i)
+        index.insert_batch(wrap(rows[5:690]), np.arange(105, 790))
+        for i in range(690, 700):
+            index.insert(rows[i], 100 + i)
+    assert len(mine) == len(ref) == 700
+    np.testing.assert_array_equal(mine._buf[:700].numpy(), ref._buf[:700])
+    np.testing.assert_array_equal(mine._ids[:700], ref._ids[:700])
+    q = rows[::37] + 0.01 * _unit_rows(8, 19)
+    ids, scores = mine.query(torch.from_numpy(q.astype(np.float32)))
+    ref_ids, ref_scores = ref.query(q.astype(np.float32))
+    np.testing.assert_array_equal(ids, ref_ids)
+    np.testing.assert_allclose(scores, ref_scores, rtol=0, atol=1e-6)
