@@ -53,6 +53,15 @@ class ModelConfig:
     def head_dim(self) -> int:
         return self.d_model // max(self.num_heads, 1)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k runs only for sub-quadratic sequence mixers."""
+        return self.family in ("ssm", "hybrid")
+
     def reduced(self) -> "ModelConfig":
         """Small same-family config for CPU tests (the reference's rule)."""
         period = 1
@@ -162,7 +171,7 @@ ARCH_IDS = (
 # the architectures whose slice is ported; the rest raise in get_config
 _PORTED = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
            for a in ("granite-8b", "granite-3-8b", "phi3-medium-14b", "chatglm3-6b",
-                     "qwen3-moe-30b-a3b", "grok-1-314b")}
+                     "qwen3-moe-30b-a3b", "grok-1-314b", "mamba2-130m", "jamba-v0.1-52b")}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -2,10 +2,10 @@
 
 ``context_model_from_params`` builds the port's context model from the
 reference's trained ``w [M, D]`` and ``u [D, M]`` (``pinv(U)`` is
-recomputed here). ``lm_params_from_jax`` builds the port's dense or MoE
-LM from the reference's param tree. ``check_constants`` asserts that the port's
-own copies of the hashing constants equal arrays taken from the
-reference, which catches drift between the two packages.
+recomputed here). ``lm_params_from_jax`` builds the port's LM (dense,
+MoE, SSM or hybrid) from the reference's param tree. ``check_constants``
+asserts that the port's own copies of the hashing constants equal arrays
+taken from the reference, which catches drift between the two packages.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import context_model, hashing
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, block_period
 
 
 def context_model_from_params(w: np.ndarray, u: np.ndarray,
@@ -45,29 +45,33 @@ def lm_params_from_jax(params: dict, cfg: ModelConfig,
     """The port's ``Model`` holding the reference's LM params.
 
     ``params`` is the reference's tree with numpy leaves (any float dtype;
-    bf16 goes through f32 exactly): ``embed`` [V, d], ``lm_head`` [d, V],
-    ``final_norm.scale`` [d], and ``blocks[0]``, the one period-position of
-    the stack, with every leaf stacked over the L layers (``ln1``,
-    ``attn.wq/wk/wv/wo``, ``ln2``, and ``mlp.*`` or ``moe.router`` /
-    ``moe.e_*``). Raises on a missing leaf or a shape that does not fit
-    ``cfg``."""
+    bf16 goes through f32 exactly): ``embed`` [V, d], ``lm_head`` [d, V]
+    (absent when the head is tied), ``final_norm.scale`` [d], and
+    ``blocks``, one entry per period-position, each leaf stacked over the
+    ``L / period`` repetitions: layer ``i`` is ``blocks[i % period]`` at
+    index ``i // period``. A position holds ``ln1``, ``attn.wq/wk/wv/wo``
+    or ``ssm.in_proj/conv_w/conv_b/a_log/dt_bias/d_skip/out_proj``, and
+    where the layer has an FFN ``ln2`` with ``mlp.*`` or ``moe.router`` /
+    ``moe.e_*``. Raises on a missing or unexpected leaf (an ``lm_head``
+    beside a tied head included) or a shape that does not fit ``cfg``."""
     model = Model(cfg, device=device)
-    if len(params["blocks"]) != 1:
-        raise ValueError(
-            f"want one stacked period-position, got {len(params['blocks'])}: every ported "
-            "arch has block period 1 (layers of one kind), so blocks[0] holds all L layers")
-    stack = params["blocks"][0]
+    period = block_period(cfg)
+    n_rep = cfg.num_layers // period
+    if len(params["blocks"]) != period:
+        raise ValueError(f"want {period} stacked period-positions (the block period of "
+                         f"{cfg.name}), got {len(params['blocks'])}")
     leaves = {"embed": params["embed"], "final_norm.scale": params["final_norm"]["scale"]}
     if "lm_head" in params:
         leaves["lm_head"] = params["lm_head"]
-    for group, sub in stack.items():
-        for name, arr in sub.items():
-            arr = np.asarray(arr)
-            if arr.shape[:1] != (cfg.num_layers,):
-                raise ValueError(f"blocks[0].{group}.{name}: leading axis "
-                                 f"{arr.shape[:1]} is not L = {cfg.num_layers}")
-            for i in range(cfg.num_layers):
-                leaves[f"blocks.{i}.{group}.{name}"] = arr[i]
+    for pos, stack in enumerate(params["blocks"]):
+        for group, sub in stack.items():
+            for name, arr in sub.items():
+                arr = np.asarray(arr)
+                if arr.shape[:1] != (n_rep,):
+                    raise ValueError(f"blocks[{pos}].{group}.{name}: leading axis "
+                                     f"{arr.shape[:1]} is not L / period = {n_rep}")
+                for r in range(n_rep):
+                    leaves[f"blocks.{r * period + pos}.{group}.{name}"] = arr[r]
     own = dict(model.named_parameters())
     if set(leaves) != set(own):
         raise ValueError(f"param trees differ: missing {sorted(set(own) - set(leaves))}, "

@@ -4,12 +4,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --batch 8 --prompt-len 32 --gen 32 [--full] [--device cpu]
 
-The prompt goes through ``decode_step`` token by token, as in the
-reference (which has no one-pass cache fill); then ``gen`` tokens are
-generated greedily, or sampled at ``--temperature`` from a seeded
-``torch.Generator`` (torch's draws, not JAX's). Runs on the CUDA device
-unless ``--device cpu``; reports prefill and decode tokens/s and checks
-that every token is in the vocabulary.
+``--arch`` takes every ported arch: granite-8b, granite-3-8b,
+phi3-medium-14b, chatglm3-6b, qwen3-moe-30b-a3b, grok-1-314b, mamba2-130m
+and jamba-v0.1-52b (``configs.base._PORTED``). The prompt goes through
+``decode_step`` token by token (an SSM layer's state and an attention
+layer's KV cache alike), as in the reference (which has no one-pass cache
+fill); then ``gen`` tokens are generated greedily, or sampled at
+``--temperature`` from a seeded ``torch.Generator`` (torch's draws, not
+JAX's). Runs on the CUDA device unless ``--device cpu``; reports prefill
+and decode tokens/s and checks that every token is in the vocabulary.
 """
 from __future__ import annotations
 
