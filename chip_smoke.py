@@ -37,6 +37,13 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               arch whose heads differ from granite's (phi3-medium 40 / 10,
               chatglm3 32 / 2, qwen3-moe 32 / 4 at hd 64), at the same
               length, held to the bf16 tolerance and timed the same way;
+              then one line a shape of the cross-attention and encoder
+              paths (llama-3.2-vision-11b's cross, 32,768 x 1601 at 32 / 8,
+              hd 128; whisper-base's causal 32,768 x 32,768, its cross
+              32,768 x 1500 and its encoder's 1500 x 1500 at 8 / 8, hd 64;
+              the cross of a decode step at batch 4, Tq 1, for each),
+              checked on both routes and timed the same way, non-causal
+              where the path is;
   4. main     CARD ingest end to end (DedupStore on the card) over
               sql_dump and vmdk, 32 MiB x 4 versions: fit, ingest,
               SHA-256-identical restore, stage times, DCR (which must be
@@ -174,7 +181,19 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               1e-3, differing routing decisions counted, each a near tie
               (margin < 1e-6); all but qwen3-moe and grok-1 also against
               the card's token-by-token decode (jamba at a capacity that
-              drops nothing).
+              drops nothing); llama-3.2-vision-11b and whisper-base at full
+              size with seeded random extras (images [1, 1601, 4096],
+              frames [1, 1500, 512]): a 32,768-token prefill (48 and 18
+              launches of D, all on the tensor cores: self, cross and
+              encoder sublayers), serve_loop at batch 4, prompt 64, 16 new
+              tokens with images or the encoder's output as memory (8 and
+              6 launches a step), a step with the extras as f32 host
+              tensors equal to the step with them on the card, and
+              serve_loop without extras raising KeyError as the
+              reference's does; their f32 parity (the VLM at one block
+              period of 5 with 1601 image tokens, whisper at full size),
+              prefill against own decode with the same extras within
+              1e-4.
 Then the nvidia-smi line, the kernels summary line, and the result line.
 Exits non-zero on any mismatch and when there is no CUDA device.
 """
@@ -637,7 +656,8 @@ def check_attn(dev, gen, t_main: int) -> dict:
     prefill's shape (B 1, T = the prefill length, granite's heads, bf16)."""
     checks = []
     for dtype in (torch.bfloat16, torch.float32):
-        for name, b, tq, tk, h, kv, hd, causal in ATTN_CHECKS + SIMT_ONLY_CHECKS:
+        for name, b, tq, tk, h, kv, hd, causal in (ATTN_CHECKS + SIMT_ONLY_CHECKS
+                                                   + ATTN_PATH_SHAPES):
             q, k, v = attn_inputs(b, tq, tk, h, kv, hd, dtype, dev, gen)
             before = dict(ops.LAUNCHES)
             got = ops.flash_attention(q, k, v, causal)
@@ -683,11 +703,22 @@ def check_attn(dev, gen, t_main: int) -> dict:
         arch_rows.append(dict(arch=arch, **arch_row))
         emit("attn_kernel", name="flash_attention", arch=arch, dtype="bfloat16",
              route="sm90", **arch_row)
+    # the cross-attention and encoder paths' shapes
+    path_rows = []
+    for name, b, tq, tk, h, kv, hd, causal in ATTN_PATH_SHAPES:
+        q, k, v = attn_inputs(b, tq, tk, h, kv, hd, torch.bfloat16, dev, gen)
+        path_row, plain = time_attn(q, k, v, name, causal)
+        del plain, q, k, v
+        path_row.pop("flops")
+        path_rows.append(dict(path=name, **path_row))
+        emit("attn_kernel", name="flash_attention", path=name, dtype="bfloat16",
+             route="sm90", **path_row)
     err_f32 = max(c["max_abs_err"] for c in checks if c["dtype"] == "float32")
     return dict(name="flash_attention", max_abs_err=row["max_abs_err"], max_abs_err_f32=err_f32,
                 ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
-                simt_ms=simt_ms, simt_source=flash_attn.SOURCE_SIMT, arch_rows=arch_rows)
+                simt_ms=simt_ms, simt_source=flash_attn.SOURCE_SIMT, arch_rows=arch_rows,
+                path_rows=path_rows)
 
 
 # (arch, H, KV, hd) of phase lm_families' archs whose heads differ from
@@ -695,32 +726,49 @@ def check_attn(dev, gen, t_main: int) -> dict:
 # heads, group 16, and hd 64 on the tensor cores
 ATTN_ARCH_SHAPES = [("phi3-medium-14b", 40, 10, 128), ("chatglm3-6b", 32, 2, 128),
                     ("qwen3-moe-30b-a3b", 32, 4, 64)]
+# (name, B, Tq, Tk, H, KV, hd, causal) of the cross-attention and encoder
+# paths of phase lm_families, as its prefills and decode steps give them:
+# llama-3.2-vision-11b's cross sublayer over its 1601 image tokens,
+# whisper-base's causal self-attention (GQA group 1 at hd 64), its cross
+# over 1500 frames and its encoder's non-causal 1500 x 1500, and the cross
+# sublayer of a decode step at batch 4 (Tq 1) for each. Each is checked on
+# both routes (bf16: tensor cores, f32: SIMT) and timed on the tensor cores
+ATTN_PATH_SHAPES = [
+    ("llama-3.2-vision-11b cross", 1, 32_768, 1601, 32, 8, 128, False),
+    ("whisper-base self", 1, 32_768, 32_768, 8, 8, 64, True),
+    ("whisper-base cross", 1, 32_768, 1500, 8, 8, 64, False),
+    ("whisper-base encoder", 1, 1500, 1500, 8, 8, 64, False),
+    ("llama-3.2-vision-11b decode cross", 4, 1, 1601, 32, 8, 128, False),
+    ("whisper-base decode cross", 4, 1, 1500, 8, 8, 64, False),
+]
 
 
-def time_attn(q, k, v, what: str) -> tuple[dict, torch.Tensor]:
-    """Kernel D's tensor-core route at one causal bf16 prefill shape
-    ([1, T, H, hd] q, [1, T, KV, hd] k, v), held to the plain version and
-    timed beside it, SDPA and the bound: bytes, q, k, v and o once each;
-    operations, 2 H T^2 hd (Q.K^T and P.V over the causal half) at the bf16
-    tensor-core rate. Returns (the row, the plain output)."""
-    _, t_len, h, hd = q.shape
+def time_attn(q, k, v, what: str, causal: bool = True) -> tuple[dict, torch.Tensor]:
+    """Kernel D's tensor-core route at one bf16 shape ([B, Tq, H, hd] q,
+    [B, Tk, KV, hd] k, v; causal ones square), held to the plain version
+    and timed beside it, SDPA and the bound: bytes, q, k, v and o once
+    each; operations, 4 B H Tq Tk hd (Q.K^T and P.V), halved when causal,
+    at the bf16 tensor-core rate. Returns (the row, the plain output)."""
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
     outs = {}
     before = ops.LAUNCHES["flash_attention_sm90"]
-    ms = time_ms(lambda: outs.update(sm90=ops.flash_attention(q, k, v, True)),
+    ms = time_ms(lambda: outs.update(sm90=ops.flash_attention(q, k, v, causal)),
                  reps=10, warmup=2)
     if ops.LAUNCHES["flash_attention_sm90"] - before != 12:
         fail(f"the {what} timing did not run the tensor-core route")
-    plain_ms = time_ms(lambda: outs.update(plain=attn_plain(q, k, v, True)),
+    plain_ms = time_ms(lambda: outs.update(plain=attn_plain(q, k, v, causal)),
                        reps=1, warmup=1)
     err, used = attn_err(outs["sm90"], outs["plain"], torch.bfloat16, what)
     t = lambda x: x.transpose(1, 2)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        t(q), t(k), t(v), is_causal=True, enable_gqa=True), reps=5, warmup=2)
+        t(q), t(k), t(v), is_causal=causal, enable_gqa=True), reps=5, warmup=2)
     moved = 2 * (2 * q.numel() + k.numel() + v.numel())          # q, k, v, o in bf16
-    flops = 2.0 * 2.0 * h * t_len * t_len * hd / 2                 # causal half
+    flops = 4.0 * b * h * tq * tk * hd / (2 if causal else 1)     # causal: the lower half
     b_ms, b_by = bound(moved, flops, BF16_FLOP_PER_S)
-    row = dict(shape=[1, t_len, h, k.shape[2], hd], max_abs_err=err, bound_used=used, ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, flops=flops)
+    row = dict(shape=[b, tq, tk, h, k.shape[2], hd], causal=causal, max_abs_err=err,
+               bound_used=used, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, flops=flops)
     return row, outs["plain"]
 
 
@@ -2461,7 +2509,8 @@ PROFILE_PROMPT, PROFILE_GEN = 8, 16
 PARITY_LAYERS, PARITY_LEN, PARITY_TOL = 4, 256, 1e-3
 
 
-def timed_prefill(model, tokens) -> tuple[torch.Tensor, float, dict[str, float]]:
+def timed_prefill(model, tokens, extras: dict | None = None
+                  ) -> tuple[torch.Tensor, float, dict[str, float]]:
     """(last logits, wall seconds, ms inside kernel D by route: CUDA events
     around each launch of whichever kernel the prefill takes)."""
     events = {"sm90": [], "simt": []}
@@ -2483,7 +2532,7 @@ def timed_prefill(model, tokens) -> tuple[torch.Tensor, float, dict[str, float]]
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = model.prefill(tokens)
+        logits = model.prefill(tokens, extras)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -2579,12 +2628,21 @@ FAMILY_DEPTH = {"jamba-v0.1-52b": 8}
 # (mamba2-130m: attention-free)
 LONG_LEN = get_shape("long_500k").seq_len
 FAMILY_SERVE_GEN = 16
+# the cross-attention families, at full size (llama-3.2-vision-11b is
+# 10.11 B parameters, 20.2 GB in bf16): a prefill with seeded random
+# extras (images [1, 1601, 4096]; frames [1, 1500, 512] through the
+# encoder) and decode at batch 4 with images / the encoder's output as memory
+CROSS_ARCHS = ("llama-3.2-vision-11b", "whisper-base")
+# the cross archs' prefill against their own decode, f32
+CROSS_DECODE_TOL = 1e-4
 # card-against-CPU parity in f32 at each arch's full head layout (d_model,
 # H / KV, hd, rotary fraction, activation, virtual experts, the SSM's N and
-# P), with depth (one block period where the period is longer), FFN width,
-# vocabulary and expert count cut so that the CPU side runs in seconds;
-# top-k stays the arch's where it fits the cut expert count
-FAMILY_PARITY_ARCHS = FAMILY_ARCHS + ("grok-1-314b",)
+# P, the image tokens), with depth (one block period where the period is
+# longer), FFN width, vocabulary and expert count cut so that the CPU side
+# runs in seconds; top-k stays the arch's where it fits the cut expert
+# count. whisper-base (97.2 M parameters) runs at full size
+FAMILY_PARITY_ARCHS = FAMILY_ARCHS + ("grok-1-314b",) + CROSS_ARCHS
+FAMILY_PARITY_FULL = ("whisper-base",)
 FAMILY_PARITY_CUT = dict(num_layers=PARITY_LAYERS, d_ff=512, vocab_size=4096,
                          dtype="float32")
 FAMILY_PARITY_EXPERTS = 16
@@ -2739,39 +2797,45 @@ def family_prefill(dev, arch: str, gen) -> int:
 
 def family_parity(dev, arch: str, gen) -> None:
     """The arch's head and SSM layout with depth and widths cut
-    (FAMILY_PARITY_CUT; depth one block period where that is longer), in
-    f32: the card's prefill (kernel D, the chunked SSD) against the CPU's
-    plain path on the same weights, last logits within PARITY_TOL; its
-    routing decisions that differ between the card and the CPU must each
-    be a near tie. Then the card's prefill against its own token-by-token
-    decode (the dense cached attention, the recurrent SSM step), at a
-    capacity that drops nothing where the stack has MoE: a prefill routes
-    all tokens under one capacity, decode a token a sequence, so at the
-    arch's capacity the reference's two differ too. qwen3-moe and grok-1,
-    MoE in every layer and top-8 of 16 after the cut, where near ties
-    between the two paths are common, are exempt from the decode check."""
+    (FAMILY_PARITY_CUT; depth one block period where that is longer;
+    nothing cut for FAMILY_PARITY_FULL), in f32, with seeded random extras
+    where the family takes them: the card's prefill (kernel D, the chunked
+    SSD) against the CPU's plain path on the same weights and extras, last
+    logits within PARITY_TOL; its routing decisions that differ between
+    the card and the CPU must each be a near tie. Then the card's prefill
+    against its own token-by-token decode with the same extras (the dense
+    cached attention, the cross sublayers at Tq 1, the recurrent SSM step;
+    within CROSS_DECODE_TOL for the cross archs), at a capacity that drops
+    nothing where the stack has MoE: a prefill routes all tokens under one
+    capacity, decode a token a sequence, so at the arch's capacity the
+    reference's two differ too. qwen3-moe and grok-1, MoE in every layer
+    and top-8 of 16 after the cut, where near ties between the two paths
+    are common, are exempt from the decode check."""
     full = get_config(arch)
     period = block_period(full)
     cut = dict(FAMILY_PARITY_CUT, num_layers=period * max(1, PARITY_LAYERS // period))
     if full.num_experts:
         cut.update(num_experts=min(full.num_experts, FAMILY_PARITY_EXPERTS),
                    experts_per_token=min(full.experts_per_token, FAMILY_PARITY_EXPERTS // 2))
-    cfg = dataclasses.replace(full, **cut)
+    cfg = dataclasses.replace(full, **(dict(dtype="float32") if arch in FAMILY_PARITY_FULL
+                                       else cut))
     length = FAMILY_PARITY_LEN.get(arch, PARITY_LEN)
+    extras = cross_extras(cfg, 1, dev, gen, torch.float32) if arch in CROSS_ARCHS else None
     cpu = make_model(cfg, device="cpu", seed=5)
     card = make_model(cfg, seed=5)
     card.load_state_dict(cpu.state_dict())
     tokens = torch.randint(0, cfg.vocab_size, (1, length), device=dev, generator=gen)
     with moe_routes(keep_routes=True) as cpu_rec:
-        want = cpu.prefill(tokens.cpu())
+        want = cpu.prefill(tokens.cpu(), extras and {k: v.cpu() for k, v in extras.items()})
     with moe_routes(keep_routes=True) as card_rec:
-        got = card.prefill(tokens)
+        got = card.prefill(tokens, extras)
     del cpu
     err = float((got.cpu() - want).abs().max())
     line = dict(arch=arch, layers=cfg.num_layers, heads=[cfg.num_heads, cfg.num_kv_heads,
                 cfg.head_dim], d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
                 experts=[cfg.num_experts, cfg.experts_per_token, cfg.moe_ffn_shards],
                 ssm=[cfg.ssm_state, cfg.ssm_head_dim] if cfg.ssm_state else None,
+                extras={k: list(v.shape) for k, v in (extras or {}).items()},
                 tokens=length, dtype="float32", card_vs_cpu_max_abs_err=err,
                 logits_abs_max=float(want.abs().max()), tol=PARITY_TOL)
     if not torch.allclose(got.cpu(), want, rtol=PARITY_TOL, atol=PARITY_TOL):
@@ -2797,10 +2861,11 @@ def family_parity(dev, arch: str, gen) -> None:
             model = card
         cache = model.init_cache(1, length)
         for i in range(length):
-            step, cache = model.decode_step(tokens[:, i:i + 1], cache)
+            step, cache = model.decode_step(tokens[:, i:i + 1], cache, extras)
         derr = float((got - step).abs().max())
-        line.update(prefill_vs_decode_max_abs_err=derr)
-        if not torch.allclose(got, step, rtol=PARITY_TOL, atol=PARITY_TOL):
+        tol = CROSS_DECODE_TOL if extras else PARITY_TOL
+        line.update(prefill_vs_decode_max_abs_err=derr, decode_tol=tol)
+        if not torch.allclose(got, step, rtol=tol, atol=tol):
             fail(f"{arch}: prefill != token-by-token decode (max abs err {derr})")
         del model
     emit("lm_families", part="parity", **line)
@@ -2808,14 +2873,120 @@ def family_parity(dev, arch: str, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def cross_extras(cfg, batch: int, dev, gen, dtype) -> dict:
+    """Seeded normal ``images`` (vlm) or ``frames`` (audio), [batch, T, d]."""
+    n = cfg.num_image_tokens if cfg.family == "vlm" else cfg.num_audio_frames
+    x = torch.randn(batch, n, cfg.d_model, device=dev, generator=gen).to(dtype)
+    return {"images" if cfg.family == "vlm" else "frames": x}
+
+
+def kernel_d_calls(cfg) -> tuple[int, int]:
+    """Kernel D's launches in a prefill with extras (every self-attention,
+    cross and encoder sublayer) and in a decode step given the memory (the
+    cross sublayers)."""
+    kinds = layer_kinds(cfg)
+    cross = sum(k.cross for k in kinds) + (cfg.num_layers if cfg.encoder_layers else 0)
+    return sum(k.mixer == "attn" for k in kinds) + cross + cfg.encoder_layers, cross
+
+
+def cross_family(dev, arch: str, gen) -> int:
+    """A cross-attention arch at full size in bf16: a 32,768-token prefill
+    with seeded random extras (kernel D's launches, all on the tensor
+    cores, and time; peak memory with the weights); serve_loop at batch 4
+    with images, or with the encoder's output as memory, kernel D's
+    launches a step checked; one step with the extras as f32 host tensors
+    equal to the same step with them on the card; serve_loop without
+    extras raising KeyError, as the reference's does. Returns kernel D's
+    launches in the prefill and the serve_loop."""
+    cfg = get_config(arch)
+    n_prefill, n_step = kernel_d_calls(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = make_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated(dev)
+    extras = cross_extras(cfg, 1, dev, gen, torch.bfloat16)
+    model.prefill(torch.randint(0, cfg.vocab_size, (1, 512), device=dev, generator=gen), extras)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), device=dev, generator=gen)
+    ops.reset_launches()
+    logits, wall, attn_ms = timed_prefill(model, tokens, extras)
+    launches, sm90 = ops.LAUNCHES["flash_attention"], ops.LAUNCHES["flash_attention_sm90"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(logits.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"{arch}: prefill logits are not finite [1, {cfg.vocab_size}]")
+    total_ms = sum(attn_ms.values())
+    emit("lm_families", part="prefill", arch=arch, family=cfg.family,
+         params=sum(p.numel() for p in model.parameters()), dtype=cfg.dtype,
+         layers=cfg.num_layers, encoder_layers=cfg.encoder_layers,
+         heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+         extras={k: list(v.shape) for k, v in extras.items()}, tokens=PREFILL_LEN,
+         init_s=init_s, seconds=wall, tokens_per_s=PREFILL_LEN / wall,
+         flash_attention_launches=launches, flash_attention_sm90_launches=sm90,
+         flash_attention_ms=total_ms, flash_attention_share=total_ms / 1e3 / wall,
+         weight_bytes=weights, peak_bytes=peak,
+         logits_abs_max=float(logits.float().abs().max()))
+    if launches != n_prefill or sm90 != n_prefill:
+        fail(f"{arch}: prefill launched kernel D {launches} times, {sm90} on the tensor "
+             f"cores; want all {n_prefill} on the tensor cores")
+    del logits
+
+    served = cross_extras(cfg, SERVE_BATCH, dev, gen, torch.bfloat16)
+    if cfg.family == "audio":
+        served = {"memory": model.encode_audio(served["frames"])}
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+                            generator=gen)
+    ops.reset_launches()
+    out, prefill_s, decode_s = serve.serve_loop(model, prompts, FAMILY_SERVE_GEN,
+                                                extras=served)
+    steps = SERVE_PROMPT + FAMILY_SERVE_GEN
+    serve_launches = ops.LAUNCHES["flash_attention"]
+    serve_sm90 = ops.LAUNCHES["flash_attention_sm90"]
+    # the extras as f32 tensors on the host: cast and moved to the card
+    host = {k: v.float().cpu() for k, v in served.items()}
+    got, _ = model.decode_step(prompts[:, :1], model.init_cache(SERVE_BATCH, 1), host)
+    host_launches = ops.LAUNCHES["flash_attention_sm90"] - serve_sm90
+    want, _ = model.decode_step(prompts[:, :1], model.init_cache(SERVE_BATCH, 1), served)
+    try:
+        serve.serve_loop(model, prompts[:, :2], 1)
+        no_extras = None
+    except KeyError as e:
+        no_extras = f"KeyError: {e}"
+    emit("lm_families", part="serve", arch=arch, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+         gen=FAMILY_SERVE_GEN, extras={k: list(v.shape) for k, v in served.items()},
+         prefill_s=prefill_s, decode_s=decode_s,
+         prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_s,
+         decode_tokens_per_s=SERVE_BATCH * FAMILY_SERVE_GEN / decode_s,
+         flash_attention_launches=serve_launches, flash_attention_per_step=serve_launches / steps,
+         host_extras_step_equal=bool(torch.equal(got, want)), without_extras=no_extras,
+         first_tokens=out[:, :8].tolist())
+    if serve_launches != n_step * steps or serve_sm90 != serve_launches:
+        fail(f"{arch}: serve_loop launched kernel D {serve_launches} times ({serve_sm90} on "
+             f"the tensor cores) in {steps} steps; want {n_step} a step, on the tensor cores")
+    if out.shape != (SERVE_BATCH, FAMILY_SERVE_GEN) or \
+            not ((out >= 0) & (out < cfg.vocab_size)).all():
+        fail(f"{arch}: serve_loop gave tokens of shape {out.shape} or outside the vocabulary")
+    if host_launches != n_step or not torch.equal(got, want):
+        fail(f"{arch}: a step with host f32 extras launched kernel D {host_launches} times "
+             f"or differs from the step with the extras on the card")
+    if no_extras is None:
+        fail(f"{arch}: serve_loop without extras ran; the reference's raises KeyError")
+    del model, served, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches + serve_launches
+
+
 def lm_families_phase(dev) -> int:
-    """Phase 7b; returns kernel D's launches in its prefills."""
+    """Phase 7b; returns kernel D's launches in its prefills and in the
+    cross archs' serve_loops."""
     gen = torch.Generator(device=dev).manual_seed(4)
     t0 = time.perf_counter()
     launches = sum(family_prefill(dev, arch, gen) for arch in FAMILY_ARCHS)
+    launches += sum(cross_family(dev, arch, gen) for arch in CROSS_ARCHS)
     for arch in FAMILY_PARITY_ARCHS:
         family_parity(dev, arch, gen)
-    emit("lm_families", part="summary", archs=list(FAMILY_ARCHS),
+    emit("lm_families", part="summary", archs=list(FAMILY_ARCHS + CROSS_ARCHS),
          flash_attention_launches=launches, phase_s=time.perf_counter() - t0)
     return launches
 

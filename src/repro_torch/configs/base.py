@@ -3,8 +3,7 @@
 
 ``ModelConfig`` is a copy of the reference's dataclass, field for field,
 so a config carries across as ``ModelConfig(**dataclasses.asdict(c))``.
-The registry holds the architectures the port can run; the others are
-listed and raise ``NotImplementedError`` until their slice is ported.
+The registry holds every architecture of ``ARCH_IDS``.
 """
 from __future__ import annotations
 
@@ -168,17 +167,13 @@ ARCH_IDS = (
     "whisper-base",
 )
 
-# the architectures whose slice is ported; the rest raise in get_config
-_PORTED = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
-           for a in ("granite-8b", "granite-3-8b", "phi3-medium-14b", "chatglm3-6b",
-                     "qwen3-moe-30b-a3b", "grok-1-314b", "mamba2-130m", "jamba-v0.1-52b")}
+# each architecture's config module
+_PORTED = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; options: {list(ARCH_IDS)}")
-    if arch not in _PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not yet ported")
     return importlib.import_module(_PORTED[arch]).CONFIG
 
 

@@ -2,8 +2,8 @@
 
 ``context_model_from_params`` builds the port's context model from the
 reference's trained ``w [M, D]`` and ``u [D, M]`` (``pinv(U)`` is
-recomputed here). ``lm_params_from_jax`` builds the port's LM (dense,
-MoE, SSM or hybrid) from the reference's param tree. ``check_constants``
+recomputed here). ``lm_params_from_jax`` builds the port's LM (any
+family) from the reference's param tree. ``check_constants``
 asserts that the port's own copies of the hashing constants equal arrays
 taken from the reference, which catches drift between the two packages.
 """
@@ -40,6 +40,21 @@ def check_constants(gear_table: np.ndarray, ms_a: np.ndarray, ms_b: np.ndarray) 
         raise AssertionError("multiply-shift params differ from the reference's")
 
 
+def _unstack(leaves: dict, tree: dict, stack: str, n: int, period: int = 1, pos: int = 0
+             ) -> None:
+    """Put each leaf of ``tree`` (``{group: {name: [n, ...]}}``, position
+    ``pos`` of ``stack``) into ``leaves`` as layer ``r * period + pos``'s:
+    ``f"{stack}.{layer}.{group}.{name}"`` for r < n."""
+    for group, sub in tree.items():
+        for name, arr in sub.items():
+            arr = np.asarray(arr)
+            if arr.shape[:1] != (n,):
+                raise ValueError(f"{stack}[{pos}].{group}.{name}: leading axis "
+                                 f"{arr.shape[:1]} is not {n}")
+            for r in range(n):
+                leaves[f"{stack}.{r * period + pos}.{group}.{name}"] = arr[r]
+
+
 def lm_params_from_jax(params: dict, cfg: ModelConfig,
                        device: str | torch.device | None = None) -> Model:
     """The port's ``Model`` holding the reference's LM params.
@@ -50,28 +65,33 @@ def lm_params_from_jax(params: dict, cfg: ModelConfig,
     ``blocks``, one entry per period-position, each leaf stacked over the
     ``L / period`` repetitions: layer ``i`` is ``blocks[i % period]`` at
     index ``i // period``. A position holds ``ln1``, ``attn.wq/wk/wv/wo``
-    or ``ssm.in_proj/conv_w/conv_b/a_log/dt_bias/d_skip/out_proj``, and
-    where the layer has an FFN ``ln2`` with ``mlp.*`` or ``moe.router`` /
-    ``moe.e_*``. Raises on a missing or unexpected leaf (an ``lm_head``
-    beside a tied head included) or a shape that does not fit ``cfg``."""
+    or ``ssm.in_proj/conv_w/conv_b/a_log/dt_bias/d_skip/out_proj``, where
+    the layer has a cross sublayer ``ln_cross`` and ``cross.*``, and where
+    it has an FFN ``ln2`` with ``mlp.*`` or ``moe.router`` / ``moe.e_*``.
+    An encoder-decoder also has ``encoder`` (``ln1``, ``attn``, ``ln2``,
+    ``mlp``, each leaf stacked over ``encoder_layers``), ``enc_norm.scale``
+    and ``dec_cross``, one entry per period-position stacked like
+    ``blocks`` (``ln_cross``, ``cross``). Raises on a missing or unexpected
+    leaf (an ``lm_head`` beside a tied head included) or a shape that does
+    not fit ``cfg``."""
     model = Model(cfg, device=device)
     period = block_period(cfg)
     n_rep = cfg.num_layers // period
-    if len(params["blocks"]) != period:
-        raise ValueError(f"want {period} stacked period-positions (the block period of "
-                         f"{cfg.name}), got {len(params['blocks'])}")
     leaves = {"embed": params["embed"], "final_norm.scale": params["final_norm"]["scale"]}
     if "lm_head" in params:
         leaves["lm_head"] = params["lm_head"]
-    for pos, stack in enumerate(params["blocks"]):
-        for group, sub in stack.items():
-            for name, arr in sub.items():
-                arr = np.asarray(arr)
-                if arr.shape[:1] != (n_rep,):
-                    raise ValueError(f"blocks[{pos}].{group}.{name}: leading axis "
-                                     f"{arr.shape[:1]} is not L / period = {n_rep}")
-                for r in range(n_rep):
-                    leaves[f"blocks.{r * period + pos}.{group}.{name}"] = arr[r]
+    for stacked in ("blocks", "dec_cross"):
+        if stacked not in params:
+            continue
+        if len(params[stacked]) != period:
+            raise ValueError(f"{stacked}: want {period} stacked period-positions (the block "
+                             f"period of {cfg.name}), got {len(params[stacked])}")
+        for pos, tree in enumerate(params[stacked]):
+            _unstack(leaves, tree, stacked, n_rep, period, pos)
+    if "encoder" in params:
+        _unstack(leaves, params["encoder"], "encoder", cfg.encoder_layers)
+    if "enc_norm" in params:
+        leaves["enc_norm.scale"] = params["enc_norm"]["scale"]
     own = dict(model.named_parameters())
     if set(leaves) != set(own):
         raise ValueError(f"param trees differ: missing {sorted(set(own) - set(leaves))}, "

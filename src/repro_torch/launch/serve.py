@@ -4,15 +4,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --batch 8 --prompt-len 32 --gen 32 [--full] [--device cpu]
 
-``--arch`` takes every ported arch: granite-8b, granite-3-8b,
-phi3-medium-14b, chatglm3-6b, qwen3-moe-30b-a3b, grok-1-314b, mamba2-130m
-and jamba-v0.1-52b (``configs.base._PORTED``). The prompt goes through
-``decode_step`` token by token (an SSM layer's state and an attention
-layer's KV cache alike), as in the reference (which has no one-pass cache
-fill); then ``gen`` tokens are generated greedily, or sampled at
-``--temperature`` from a seeded ``torch.Generator`` (torch's draws, not
-JAX's). Runs on the CUDA device unless ``--device cpu``; reports prefill
-and decode tokens/s and checks that every token is in the vocabulary.
+``--arch`` takes every arch of ``configs.ARCH_IDS``: grok-1-314b,
+qwen3-moe-30b-a3b, llama-3.2-vision-11b, granite-8b, chatglm3-6b,
+phi3-medium-14b, granite-3-8b, mamba2-130m, jamba-v0.1-52b and
+whisper-base. The prompt goes through ``decode_step`` token by token (an
+SSM layer's state and an attention layer's KV cache alike), as in the
+reference (which has no one-pass cache fill); then ``gen`` tokens are
+generated greedily, or sampled at ``--temperature`` from a seeded
+``torch.Generator`` (torch's draws, not JAX's). ``serve_loop`` passes
+``extras`` to every step; without them a vlm or audio model raises
+``KeyError``, as the reference's ``serve_loop`` does, so ``main`` gives
+llama-3.2-vision-11b seeded random ``images`` and whisper-base the
+encoder's output over seeded random ``frames`` as ``memory`` (the
+reference's stubs of the vision tower and the conv front end). Runs on the
+CUDA device unless ``--device cpu``; reports prefill and decode tokens/s
+and checks that every token is in the vocabulary.
 """
 from __future__ import annotations
 
@@ -32,10 +38,10 @@ def _sync(device: torch.device) -> None:
 
 
 def serve_loop(model, prompts: torch.Tensor, gen_len: int, temperature: float = 0.0,
-               generator: torch.Generator | None = None
+               generator: torch.Generator | None = None, extras: dict | None = None
                ) -> tuple[np.ndarray, float, float]:
     """prompts [B, P] -> (generated tokens [B, gen_len] int64, prefill
-    seconds, decode seconds)."""
+    seconds, decode seconds). ``extras`` goes to every ``decode_step``."""
     b, plen = prompts.shape
     dev = model.device
     prompts = prompts.to(dev)
@@ -44,7 +50,7 @@ def serve_loop(model, prompts: torch.Tensor, gen_len: int, temperature: float = 
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(plen):
-        logits, cache = model.decode_step(prompts[:, i:i + 1], cache)
+        logits, cache = model.decode_step(prompts[:, i:i + 1], cache, extras)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -53,7 +59,7 @@ def serve_loop(model, prompts: torch.Tensor, gen_len: int, temperature: float = 
     t0 = time.perf_counter()
     for _ in range(gen_len):
         toks.append(tok[:, 0].cpu().numpy())
-        logits, cache = model.decode_step(tok, cache)
+        logits, cache = model.decode_step(tok, cache, extras)
         if temperature > 0 and generator is not None:
             probs = torch.softmax(logits.float() / temperature, dim=-1)
             tok = torch.multinomial(probs, 1, generator=generator)
@@ -62,6 +68,21 @@ def serve_loop(model, prompts: torch.Tensor, gen_len: int, temperature: float = 
     _sync(dev)
     decode_s = time.perf_counter() - t0
     return np.stack(toks, axis=1), prefill_s, decode_s
+
+
+def stub_extras(model, batch: int) -> dict | None:
+    """Seeded random extras for the families that need them: ``images``
+    [B, T_img, d] for vlm, ``memory`` = the encoder over random ``frames``
+    [B, T_frames, d] for audio (computed once, not at every step)."""
+    cfg = model.cfg
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    n = cfg.num_image_tokens if cfg.family == "vlm" else cfg.num_audio_frames
+    gen = torch.Generator(device=model.device).manual_seed(3)
+    x = torch.randn(batch, n, cfg.d_model, generator=gen, device=model.device)
+    if cfg.family == "vlm":
+        return {"images": x}
+    return {"memory": model.encode_audio(x)}
 
 
 def main(argv=None) -> int:
@@ -85,7 +106,7 @@ def main(argv=None) -> int:
                             generator=cpu)
     sampler = torch.Generator(device=model.device).manual_seed(2)
     out, prefill_s, decode_s = serve_loop(model, prompts, args.gen,
-                                          args.temperature, sampler)
+                                          args.temperature, sampler, stub_extras(model, args.batch))
     print(f"arch={cfg.name} batch={args.batch} device={model.device}")
     print(f"prefill {args.prompt_len} steps: {prefill_s:.2f}s "
           f"({args.batch * args.prompt_len / max(prefill_s, 1e-9):.1f} tok/s)")

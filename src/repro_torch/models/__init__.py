@@ -1,2 +1,2 @@
-"""Language-model scaffold, dense and MoE families (port of ``repro.models``)."""
+"""Language-model scaffold, every family (port of ``repro.models``)."""
 from repro_torch.models.transformer import Model, make_model  # noqa: F401

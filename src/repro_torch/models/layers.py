@@ -16,12 +16,17 @@ Attention routes by what it is given:
 - with a KV cache (decode), the dense cached attention in torch ops,
   scores in f32 (``_dense_attention``); the reference also computes that
   outside any Pallas kernel;
-- every other causal self-attention goes through kernel D
-  (``ops.flash_attention``), at every length. The reference splits dense
-  from chunked at 8192 tokens (``layers.py:212``) to bound XLA's memory;
-  both branches compute the same function, and the kernel never
-  materialises the scores, so the port needs no split;
-- cross-attention memory is not in this slice and raises.
+- every other attention goes through kernel D (``ops.flash_attention``),
+  at every length: causal self-attention (``causal=True``), the audio
+  encoder's non-causal self-attention (``causal=False``, rotated at
+  positions ``arange(T)``) and cross-attention over ``memory`` (q from x,
+  k and v from memory, neither rotated, never causal; in a decode step
+  too, at Tq 1). The reference computes the cross and encoder cases in
+  ``_dense_attention(causal=False)`` and splits causal dense from chunked
+  at 8192 tokens (``layers.py:210-215``); every branch is the function
+  its Pallas kernel computes (keys past Tk masked, ``flash_attn.py:46-49``),
+  and the kernel never materialises the scores, so the port needs no
+  split.
 
 MoE routing, dispatch and combine are torch ops, as the reference
 computes them outside any Pallas kernel; the experts' products are
@@ -139,7 +144,8 @@ def _dense_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tenso
 
 
 class Attention(nn.Module):
-    """GQA self-attention sublayer (projections, RoPE, mixing, out-proj)."""
+    """GQA self- or cross-attention sublayer (projections, RoPE, mixing,
+    out-proj)."""
 
     def __init__(self, cfg, gen: torch.Generator, device=None):
         super().__init__()
@@ -151,24 +157,26 @@ class Attention(nn.Module):
         self.wv = init((d, cfg.num_kv_heads, hd))
         self.wo = init((cfg.num_heads, hd, d), in_axes=(0, 1))
 
-    def forward(self, x: torch.Tensor, *, kv_cache: dict | None = None,
-                pos: int | None = None, memory: torch.Tensor | None = None
-                ) -> torch.Tensor:
-        """x [B, T, d]. With ``kv_cache`` ({"k", "v": [B, T_max, KV, hd]})
-        and ``pos``, writes this step's K/V into the cache in place (the
-        reference returns a new cache) and attends over it."""
-        if memory is not None:
-            raise NotImplementedError("cross-attention is not yet ported")
+    def forward(self, x: torch.Tensor, *, causal: bool = True,
+                kv_cache: dict | None = None, pos: int | None = None,
+                memory: torch.Tensor | None = None) -> torch.Tensor:
+        """x [B, T, d]. With ``memory`` [B, T_mem, d], cross-attention: k
+        and v come from memory, nothing is rotated and no key is masked.
+        With ``kv_cache`` ({"k", "v": [B, T_max, KV, hd]}) and ``pos``,
+        writes this step's K/V into the cache in place (the reference
+        returns a new cache) and attends over it."""
         cfg = self.cfg
+        src = x if memory is None else memory
         q = project(x, self.wq, 1)
-        k = project(x, self.wk, 1)
-        v = project(x, self.wv, 1)
-        if pos is None:
-            positions = torch.arange(x.shape[1], device=x.device)
-        else:
-            positions = torch.full((x.shape[0], x.shape[1]), pos, device=x.device)
-        q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
+        k = project(src, self.wk, 1)
+        v = project(src, self.wv, 1)
+        if memory is None:
+            if pos is None:
+                positions = torch.arange(x.shape[1], device=x.device)
+            else:
+                positions = torch.full((x.shape[0], x.shape[1]), pos, device=x.device)
+            q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
         if kv_cache is not None:
             if pos is None:
                 raise ValueError("a KV cache needs pos")
@@ -179,7 +187,7 @@ class Attention(nn.Module):
                                    q_offset=pos)
         else:
             out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                      causal=True)
+                                      causal=causal and memory is None)
         return project(out, self.wo, 2)
 
 

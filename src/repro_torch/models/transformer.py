@@ -1,21 +1,30 @@
-"""Model assembler, dense, MoE, SSM and hybrid families (port of
-``repro.models.transformer``).
+"""Model assembler, every family (port of ``repro.models.transformer``).
 
 A config induces a repeating period of sublayers (``layer_kinds``,
 ``block_period``): [attn + mlp] x L for the dense LMs, [attn + moe] x L
-for grok-1 and qwen3-moe, [ssm] x 24 for mamba2 (no FFN, tied head), and
-jamba's period of 8, [ssm + mlp, ssm + moe, ...,  attn + moe]. The
-reference stacks each period-position's params and scans them; here the
-layers are an ``nn.ModuleList`` walked in order, each built from its
-kind, and the run is eager under ``torch.no_grad`` (no remat: the port
-serves, it does not train yet). The MoE load-balance loss is summed over
-the sublayers as the reference's scan sums it (``logits_and_aux``).
+for grok-1 and qwen3-moe, [ssm] x 24 for mamba2 (no FFN, tied head),
+jamba's period of 8, [ssm + mlp, ssm + moe, ...,  attn + moe], and
+llama-vision's period of 5, [attn + mlp] x 4 then attn + cross + mlp;
+whisper is an encoder stack and a decoder stack with a cross sublayer at
+every layer (``dec_cross``). The reference stacks each period-position's
+params and scans them; here the layers are an ``nn.ModuleList`` walked in
+order, each built from its kind, and the run is eager under
+``torch.no_grad`` (no remat: the port serves, it does not train yet). The
+MoE load-balance loss is summed over the sublayers as the reference's
+scan sums it (``logits_and_aux``).
 
-``Model.prefill`` runs every attention sublayer through kernel D and
+``extras`` is the reference's: ``images`` [B, T_img, d] (vlm), ``frames``
+[B, T_frames, d] (audio; the encoder runs over them at every call) or
+``memory`` [B, T_mem, d] (a precomputed encoder output; it wins over the
+others). Each is cast to the model dtype on the model's device; a vlm or
+audio model without its extra raises ``KeyError``, as the reference does.
+
+``Model.prefill`` runs every attention sublayer through kernel D (the
+cross sublayers and the encoder's non-causal self-attention too) and
 every SSM sublayer through ``ssm.ssm_train``; ``Model.decode_step`` runs
-the dense cached attention and ``ssm.ssm_step``. Cross-attention and an
-encoder (the vlm and audio families) raise ``NotImplementedError`` until
-their slice is ported.
+the dense cached self-attention, the cross sublayers through kernel D at
+Tq 1, and ``ssm.ssm_step``. The memory's K / V are recomputed at every
+step, as the reference does (it keeps no cross-attention cache).
 """
 from __future__ import annotations
 
@@ -69,17 +78,27 @@ def block_period(cfg: ModelConfig) -> int:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless every sublayer is attention or SSM with an MLP or MoE
-    FFN (SwiGLU or GeLU) or none, with no cross-attention and no encoder."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.cross_attn_period
-            or cfg.encoder_layers or cfg.act not in ("swiglu", "gelu")):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only attention / SSM + MLP / MoE stacks are ported")
+    """Raise unless the family and the FFN activation are the reference's."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+            or cfg.act not in ("swiglu", "gelu")):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} with act {cfg.act!r} is not "
+                         "the reference's")
+
+
+class CrossAttention(nn.Module):
+    """A cross sublayer's params (``ln_cross``, ``cross``): whisper's
+    ``dec_cross`` entry of one decoder layer."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
+        super().__init__()
+        self.ln_cross = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.cross = L.Attention(cfg, gen, device)
 
 
 class Block(nn.Module):
     """One sublayer (``_apply_sublayer``): its mixer by ``kind.mixer``
     (``attn``: GQA attention, ``ssm``: the Mamba2 SSD block), then, where
+    ``kind.cross``, its cross sublayer over the memory, then, where
     ``kind.ffn``, its MLP or MoE FFN."""
 
     def __init__(self, cfg: ModelConfig, kind: SublayerKind, gen: torch.Generator,
@@ -90,6 +109,9 @@ class Block(nn.Module):
             self.attn = L.Attention(cfg, gen, device)
         else:
             self.ssm = S.SSM(cfg, gen, device)
+        if kind.cross:
+            self.ln_cross = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+            self.cross = L.Attention(cfg, gen, device)
         if kind.ffn:
             self.ln2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
             if kind.moe:
@@ -97,20 +119,28 @@ class Block(nn.Module):
             else:
                 self.mlp = L.MLP(cfg, gen, device)
 
-    def forward(self, x: torch.Tensor, cache: dict | None = None,
-                pos: int | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def forward(self, x: torch.Tensor, cache: dict | None = None, pos: int | None = None,
+                memory: torch.Tensor | None = None, cross_extra: CrossAttention | None = None,
+                causal: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
         """-> (x, the MoE aux loss, or None without MoE). With the layer's
         ``cache`` entry (decode), an attention sublayer writes its K/V into
         ``cache["kv"]`` in place and an SSM sublayer puts its new state
-        under ``cache["ssm"]``."""
+        under ``cache["ssm"]``. The cross sublayer (this block's own, or
+        ``cross_extra``'s params) runs only where ``memory`` is given, as
+        the reference's does; ``causal=False`` is the audio encoder's
+        self-attention."""
         h = self.ln1(x)
         if hasattr(self, "attn"):
-            x = x + self.attn(h, kv_cache=cache["kv"] if cache else None, pos=pos)
+            x = x + self.attn(h, causal=causal, kv_cache=cache["kv"] if cache else None,
+                              pos=pos)
         elif cache is not None:
             y, cache["ssm"] = self.ssm.step(h, cache["ssm"])
             x = x + y
         else:
             x = x + self.ssm(h)
+        cp = cross_extra if cross_extra is not None else self
+        if hasattr(cp, "cross") and memory is not None:
+            x = x + cp.cross(cp.ln_cross(x), memory=memory)
         if hasattr(self, "moe"):
             y, aux = self.moe(self.ln2(x))
             return x + y, aux
@@ -119,13 +149,19 @@ class Block(nn.Module):
         return x, None
 
 
+# the audio encoder's sublayer: self-attention (run non-causal) and an MLP
+ENCODER_KIND = SublayerKind("attn", False, False, True)
+
+
 class Model(nn.Module):
-    """A dense, MoE, SSM or hybrid LM on one device. ``device=None`` means
-    CUDA (and raises where there is none); pass ``device="cpu"`` for the
-    plain path. The init is drawn on the device from ``torch.Generator(
-    device).manual_seed(seed)`` with ``dense_init``'s std rule. A tied
-    head (``tie_embeddings``) has no ``lm_head``: the logits use
-    ``embed.T``."""
+    """An LM of any family on one device. ``device=None`` means CUDA (and
+    raises where there is none); pass ``device="cpu"`` for the plain path.
+    The init is drawn on the device from ``torch.Generator(device)
+    .manual_seed(seed)`` with ``dense_init``'s std rule. A tied head
+    (``tie_embeddings``) has no ``lm_head``: the logits use ``embed.T``.
+    An encoder-decoder (``encoder_layers``) also holds ``encoder`` (its
+    layers), ``enc_norm`` and ``dec_cross`` (each decoder layer's cross
+    sublayer), under the reference's names."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None,
                  seed: int = 0):
@@ -145,6 +181,12 @@ class Model(nn.Module):
             self.lm_head = nn.Parameter(
                 L.dense_init((cfg.d_model, cfg.vocab_size), gen, dtype=dt, device=dev),
                 requires_grad=False)
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(Block(cfg, ENCODER_KIND, gen, dev)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, dev)
+            self.dec_cross = nn.ModuleList(CrossAttention(cfg, gen, dev)
+                                           for _ in range(cfg.num_layers))
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed[tokens].to(L.dtype_of(self.cfg))
@@ -154,41 +196,73 @@ class Model(nn.Module):
         return L.project(self.final_norm(x), head, 1)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, T] -> logits [B, T, V] in the model dtype."""
-        return self.logits_and_aux(tokens)[0]
+    def encode_audio(self, frames) -> torch.Tensor:
+        """The encoder stack (``_encode_audio``) over frame embeddings [B,
+        T_frames, d] (a tensor or an array, on any device): each layer's
+        non-causal self-attention (rotated at ``arange(T_frames)``) and
+        GeLU MLP, then ``enc_norm`` -> the memory [B, T_frames, d] in the
+        model dtype."""
+        x = self._extra(frames)
+        for block in self.encoder:
+            x, _ = block(x, causal=False)
+        return self.enc_norm(x)
+
+    def _extra(self, value) -> torch.Tensor:
+        return torch.as_tensor(value).to(device=self.device, dtype=L.dtype_of(self.cfg))
+
+    def _memory_for(self, extras: dict) -> torch.Tensor | None:
+        """``_memory_for``: ``memory`` wins, then the family's own extra."""
+        if "memory" in extras:
+            return self._extra(extras["memory"])
+        if self.cfg.family == "audio":
+            return self.encode_audio(extras["frames"])
+        if self.cfg.family == "vlm":
+            return self._extra(extras["images"])
+        return None
 
     @torch.no_grad()
-    def logits_and_aux(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, tokens: torch.Tensor, extras: dict | None = None) -> torch.Tensor:
+        """tokens [B, T] -> logits [B, T, V] in the model dtype."""
+        return self.logits_and_aux(tokens, extras)[0]
+
+    @torch.no_grad()
+    def logits_and_aux(self, tokens: torch.Tensor, extras: dict | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """The reference's ``forward``: (logits [B, T, V], the MoE
         load-balance loss summed over the sublayers, f32, 0 without MoE)."""
-        x, aux = self._hidden(tokens)
+        x, aux = self._hidden(tokens, extras)
         return self._logits(x), aux
 
-    def _hidden(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def _hidden(self, tokens: torch.Tensor, extras: dict | None,
+                cache: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        memory = self._memory_for(extras or {})
         x = self._embed(tokens.to(self.device))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for block in self.blocks:
-            x, a = block(x)
+        pos = cache["pos"] if cache else None
+        for i, block in enumerate(self.blocks):
+            x, a = block(x, cache=cache["layers"][i] if cache else None, pos=pos,
+                         memory=memory,
+                         cross_extra=self.dec_cross[i] if self.cfg.encoder_layers else None)
             if a is not None:
                 aux = aux + a
         return x, aux
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
+    def prefill(self, tokens: torch.Tensor, extras: dict | None = None) -> torch.Tensor:
         """Teacher-forced pass over tokens [B, T] -> last-position logits
         [B, V], the value of the reference's ``logits[:, -1]``. Only the
         last position goes through the final norm and the head (both are
         per position): at 32,768 tokens the full [1, T, 49152] bf16 logits
         would take 3.2 GB. Every attention sublayer runs kernel D, every
         SSM sublayer the chunked SSD."""
-        return self._logits(self._hidden(tokens)[0][:, -1:])[:, 0]
+        return self._logits(self._hidden(tokens, extras)[0][:, -1:])[:, 0]
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Each layer's entry by its kind: ``{"kv": {"k", "v": [B, max_len,
         KV, hd]}}`` in the model dtype for attention, ``{"ssm": {"conv":
         [B, W-1, conv_ch] in the model dtype, "h": [B, H, N, P] f32}}`` for
-        SSM; ``pos`` 0."""
+        SSM; ``pos`` 0. Nothing for the cross sublayers: their K / V are
+        the memory's, recomputed at every step."""
         cfg, dt = self.cfg, L.dtype_of(self.cfg)
         shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         mk = lambda: torch.zeros(shape, dtype=dt, device=self.device)
@@ -198,16 +272,14 @@ class Model(nn.Module):
         return {"layers": layers, "pos": 0}
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, cache: dict
+    def decode_step(self, token: torch.Tensor, cache: dict, extras: dict | None = None
                     ) -> tuple[torch.Tensor, dict]:
         """token [B, 1] -> (logits [B, V], cache). Writes the step's K/V into
         the cache tensors in place, puts each SSM layer's new state in its
-        entry, and returns the cache with ``pos`` + 1."""
-        pos = cache["pos"]
-        x = self._embed(token.to(self.device))
-        for block, c in zip(self.blocks, cache["layers"]):
-            x, _ = block(x, cache=c, pos=pos)
-        return self._logits(x)[:, 0], {"layers": cache["layers"], "pos": pos + 1}
+        entry, and returns the cache with ``pos`` + 1. With ``frames`` the
+        encoder runs again, as in the reference; pass ``memory`` to spare it."""
+        x, _ = self._hidden(token, extras, cache)
+        return self._logits(x)[:, 0], {"layers": cache["layers"], "pos": cache["pos"] + 1}
 
 
 def make_model(cfg: ModelConfig, device: str | torch.device | None = None,

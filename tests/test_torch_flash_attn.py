@@ -72,6 +72,11 @@ SHAPES = [
     (2, 8, 2, 128, 288, 32, False),    # non-causal, Tq != Tk
     (1, 6, 3, 257, 257, 16, True),     # ragged vs the block size
     (1, 4, 2, 100, 260, 32, True),     # causal, Tq != Tk (start-aligned)
+    # the cross-attention and encoder paths: non-causal throughout
+    (2, 8, 2, 1, 160, 32, False),      # Tq 1: cross-attention in a decode step
+    (1, 8, 8, 150, 150, 64, False),    # GQA group 1 (whisper), the encoder's self-attention
+    (1, 4, 2, 96, 129, 32, False),     # ragged Tk, one key past a block (1601 = 25 * 64 + 1)
+    (1, 4, 1, 300, 17, 32, False),     # Tq >> Tk: a long prompt over a short memory
 ]
 
 
@@ -191,4 +196,5 @@ def test_cuda_kernel_matches_plain_version():
                 torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
                                            rtol=BF16_ULP, atol=F32_TOL)
     assert ops.LAUNCHES["flash_attention"] == 2 * len(shapes)
-    assert ops.LAUNCHES["flash_attention_sm90"] == sm90 == 4
+    assert ops.LAUNCHES["flash_attention_sm90"] == sm90 == sum(
+        s[5] in (64, 128) for s in shapes)

@@ -99,11 +99,19 @@ def _bound_used(got, want) -> float:
     return float(np.max(np.abs(got - want) / (F32_TOL + BF16_ULP * np.abs(want))))
 
 
-# granite-8b's GQA group of 4 and hd 128, heads cut 32/8 -> 8/2; and one
-# non-causal Tq != Tk case at the kernel's other hd
+# granite-8b's GQA group of 4 and hd 128, heads cut 32/8 -> 8/2; one
+# non-causal Tq != Tk case at the kernel's other hd; then the cross and
+# encoder paths, non-causal: llama-vision's decode cross (Tq 1 over its
+# 1601 image tokens, one key past a 64-key tile), whisper's encoder (GQA
+# group 1 at hd 64, 300 frames: ragged against both tiles) and its cross
+# (Tq >> Tk, group 1), and a ragged Tk under 128-query blocks at hd 128
 CASES = [(1, 8, 2, 512, 512, 128, True),
          (1, 8, 2, 1024, 1024, 128, True),
-         (1, 8, 2, 200, 520, 64, False)]
+         (1, 8, 2, 200, 520, 64, False),
+         (1, 8, 2, 1, 1601, 128, False),
+         (1, 8, 8, 300, 300, 64, False),
+         (1, 8, 8, 600, 150, 64, False),
+         (1, 8, 2, 256, 129, 128, False)]
 
 
 @pytest.fixture(scope="module")

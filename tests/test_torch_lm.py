@@ -9,7 +9,13 @@ errors measured there: forward 8.5e-6, decode 4.3e-6, aux loss 4.8e-7,
 held to the same tolerances); then the SSM and hybrid families:
 mamba2-130m (attention-free, tied head) and jamba-v0.1-52b (one period of
 8: seven SSM sublayers, one attention, MoE at odd layers), one period and
-two, through the converter.
+two, through the converter; then the cross-attention families:
+llama-3.2-vision-11b (a cross sublayer at layer 4 of each period of 5;
+one period and two) and whisper-base (an encoder of 2 layers over 32
+frames, a ``dec_cross`` sublayer at each of its 4 decoder layers), fed
+seeded normal ``images`` / ``frames`` (zero extras give zero K / V, and
+the cross output would be 0 whatever the code did). Their sublayers alone
+are held in ``tests/test_torch_cross_attn.py``.
 
 Tolerances, each from a measured max error on these inputs (logits of
 magnitude up to 4.3):
@@ -37,6 +43,10 @@ magnitude up to 4.3):
   7.0e-5 at its seed (5.7e-5 to 9.6e-5 over seeds 0-3; both packages
   about 4e-5 from a float64 run). A layer placed at the wrong depth moves
   the logits by O(1).
+- llama-3.2-vision-11b and whisper-base ``reduced()`` with extras at
+  ``F32_TOL``: measured forward 3.8e-6 / 2.5e-6, decode 2.9e-6 / 2.3e-6
+  at logits up to 4.2 / 3.7, a 13x margin; the two-period VLM (10
+  layers) the same.
 """
 import dataclasses
 
@@ -69,6 +79,7 @@ BF16_TOL = 2e-2
 NEW_ARCHS = ("granite-3-8b", "phi3-medium-14b", "chatglm3-6b", "qwen3-moe-30b-a3b",
              "grok-1-314b")
 SSM_ARCHS = ("mamba2-130m", "jamba-v0.1-52b")
+CROSS_ARCHS = ("llama-3.2-vision-11b", "whisper-base")
 
 
 def _cfgs(dtype, ref=None):
@@ -80,7 +91,9 @@ def _pair(dtype, seed=0, ref_cfg=None):
     """(reference config, model, params) and the port's model holding them.
     An SSM sublayer's ``a_log``, ``dt_bias``, ``d_skip`` and ``conv_b``
     (0, 0, 1 and 0 at init, values that hide a swap of heads or a
-    misplaced bias) are drawn from a seeded normal in both packages."""
+    misplaced bias) are drawn from a seeded normal in both packages, and
+    so is each norm scale of a cross sublayer and of the encoder (1 at
+    init: a scale taken from another layer would not show)."""
     ref_cfg, cfg = _cfgs(dtype, ref_cfg)
     ref = ref_make_model(ref_cfg)
     params = ref.init(jax.random.PRNGKey(seed))
@@ -90,8 +103,31 @@ def _pair(dtype, seed=0, ref_cfg=None):
         for name in ("a_log", "dt_bias", "d_skip", "conv_b") if "ssm" in block else ():
             block["ssm"][name] = (0.5 * rng.standard_normal(block["ssm"][name].shape)
                                   ).astype(np.float32)
+    norms = [t for t in leaves["blocks"] + leaves.get("dec_cross", []) if "ln_cross" in t]
+    norms += [leaves[k] for k in ("encoder", "enc_norm") if k in leaves]
+    for tree in norms:
+        for group in ("ln_cross", "ln1", "ln2", None):
+            sub = tree if group is None else tree.get(group)
+            if sub is not None and "scale" in sub:
+                sub["scale"] = (1 + 0.3 * rng.standard_normal(sub["scale"].shape)
+                                ).astype(np.float32)
     params = jax.tree_util.tree_map(lambda x, like: jnp.asarray(x, like.dtype), leaves, params)
     return ref_cfg, ref, params, convert.lm_params_from_jax(leaves, cfg, device="cpu")
+
+
+def _extras(cfg, batch=2, seed=7):
+    """Seeded normal extras as numpy f32 (``images`` for vlm, ``frames``
+    for audio; none for the other families); ``_jnp`` gives the
+    reference's copy."""
+    n = {"vlm": cfg.num_image_tokens, "audio": cfg.num_audio_frames}.get(cfg.family)
+    if n is None:
+        return None
+    x = np.random.default_rng(seed).standard_normal((batch, n, cfg.d_model))
+    return {"images" if cfg.family == "vlm" else "frames": x.astype(np.float32)}
+
+
+def _jnp(extras):
+    return None if extras is None else {k: jnp.asarray(v) for k, v in extras.items()}
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +151,7 @@ def test_config_copy_matches_the_reference():
     port = configs.get_config("granite-8b")
     assert dataclasses.asdict(port) == dataclasses.asdict(ref_get_config("granite-8b"))
     assert port.head_dim == 128 and port.reduced().num_kv_heads == 1
-    for arch in NEW_ARCHS + SSM_ARCHS:
+    for arch in NEW_ARCHS + SSM_ARCHS + CROSS_ARCHS:
         assert dataclasses.asdict(configs.get_config(arch)) == \
             dataclasses.asdict(ref_get_config(arch)), arch
     for arch in ARCH_IDS:
@@ -154,13 +190,25 @@ def test_rope_uploads_its_frequencies_once_per_device():
     assert layers._freqs_on.cache_info().misses == 1
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError):
-        configs.get_config(arch)
-    cfg = configs.ModelConfig(**dataclasses.asdict(ref_get_config(arch).reduced()))
-    with pytest.raises(NotImplementedError):
-        Model(cfg, device="cpu")
+@pytest.mark.parametrize("get", [configs.get_config, ref_get_config], ids=["port", "ref"])
+def test_unknown_arch_raises(get):
+    with pytest.raises(KeyError, match="unknown arch"):
+        get("llama-3.2-vision-90b")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_tree_equals_reference(arch):
+    """The port's ``Model`` has the reference's param tree, leaf for leaf
+    and shape for shape, at every arch's ``reduced()`` size: the converter
+    takes the reference's tree (it raises on a missing, unexpected or
+    misshapen leaf), and the leaf counts agree."""
+    ref_cfg = ref_get_config(arch).reduced()
+    cfg = configs.get_config(arch).reduced()
+    shapes = jax.eval_shape(ref_make_model(ref_cfg).init, jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    model = convert.lm_params_from_jax(tree, cfg, device="cpu")
+    n_ref = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
+    assert sum(p.numel() for p in model.parameters()) == n_ref
 
 
 def test_forward_matches_reference(f32, tokens, ref_forward):
@@ -275,12 +323,16 @@ def test_prefill_goes_through_the_kernel_wrapper(f32, tokens, monkeypatch):
 
 @pytest.mark.parametrize("fault", ["shape", "layers", "missing", "moe_missing",
                                    "moe_shape", "mlp_for_moe", "two_positions",
-                                   "ssm_missing", "ssm_shape", "tied_head", "one_position"])
+                                   "ssm_missing", "ssm_shape", "tied_head", "one_position",
+                                   "dec_cross_missing", "encoder_missing", "cross_shape",
+                                   "cross_missing"])
 def test_lm_params_from_jax_rejects_a_wrong_tree(request, fault):
     src = request.getfixturevalue(
         "moe_pair" if fault.startswith(("moe", "mlp")) else
         "mamba_pair" if fault.startswith(("ssm", "tied")) else
-        "jamba_pair" if fault == "one_position" else "f32")
+        "jamba_pair" if fault == "one_position" else
+        "whisper_pair" if fault.startswith(("dec_cross", "encoder")) else
+        "vlm_pair" if fault.startswith("cross") else "f32")
     cfg = configs.ModelConfig(**dataclasses.asdict(src[0]))
     params = jax.tree_util.tree_map(np.asarray, src[2])
     block = params["blocks"][0]
@@ -304,6 +356,14 @@ def test_lm_params_from_jax_rejects_a_wrong_tree(request, fault):
         params["lm_head"] = params["embed"].T
     elif fault == "one_position":
         params["blocks"] = params["blocks"][:1]
+    elif fault == "dec_cross_missing":
+        del params["dec_cross"]
+    elif fault == "encoder_missing":
+        del params["encoder"]["mlp"]["w_in"]
+    elif fault == "cross_shape":
+        params["blocks"][4]["cross"]["wk"] = params["blocks"][4]["cross"]["wk"][..., :3]
+    elif fault == "cross_missing":
+        del params["blocks"][4]["ln_cross"]
     else:
         params["blocks"] = [block, block]
     with pytest.raises(ValueError):
@@ -345,12 +405,24 @@ def jamba_pair():
     return _pair("float32", ref_cfg=ref_get_config("jamba-v0.1-52b").reduced())
 
 
+@pytest.fixture(scope="module")
+def vlm_pair():
+    return _pair("float32", ref_cfg=ref_get_config("llama-3.2-vision-11b").reduced())
+
+
+@pytest.fixture(scope="module")
+def whisper_pair():
+    return _pair("float32", ref_cfg=ref_get_config("whisper-base").reduced())
+
+
 _SHARED_PAIRS = {"qwen3-moe-30b-a3b": "moe_pair", "mamba2-130m": "mamba_pair",
-                 "jamba-v0.1-52b": "jamba_pair"}
+                 "jamba-v0.1-52b": "jamba_pair", "llama-3.2-vision-11b": "vlm_pair",
+                 "whisper-base": "whisper_pair"}
 
 
 @pytest.fixture(scope="module",
-                params=list(NEW_ARCHS + SSM_ARCHS) + [c[0] for c in CUSTOM_HEADS] + ["gelu_mlp"])
+                params=list(NEW_ARCHS + SSM_ARCHS + CROSS_ARCHS) + [c[0] for c in CUSTOM_HEADS]
+                + ["gelu_mlp"])
 def arch_pair(request):
     if request.param in _SHARED_PAIRS:
         return request.getfixturevalue(_SHARED_PAIRS[request.param])
@@ -359,25 +431,28 @@ def arch_pair(request):
 
 def test_arch_forward_prefill_and_aux_match_reference(arch_pair, tokens):
     ref_cfg, ref, params, port = arch_pair
-    want, want_aux = jax.jit(lambda p, t: ref.forward(p, t, remat=False))(
-        params, jnp.asarray(tokens))
-    got, aux = port.logits_and_aux(torch.from_numpy(tokens))
+    extras = _extras(ref_cfg)
+    want, want_aux = jax.jit(lambda p, t, e: ref.forward(p, t, e, remat=False))(
+        params, jnp.asarray(tokens), _jnp(extras))
+    got, aux = port.logits_and_aux(torch.from_numpy(tokens), extras)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5, atol=1e-7)
     assert (float(aux) > 0) == bool(ref_cfg.num_experts)
-    pre = port.prefill(torch.from_numpy(tokens)).numpy()
+    pre = port.prefill(torch.from_numpy(tokens), extras).numpy()
     np.testing.assert_allclose(pre, np.asarray(want)[:, -1], rtol=0, atol=F32_TOL)
 
 
 def test_arch_decode_steps_match_reference(arch_pair, tokens):
     """Token by token, MoE included: at decode the capacity is the
-    reference's at t = B (it drops assignments there too)."""
+    reference's at t = B (it drops assignments there too). whisper's
+    steps take ``frames``, so each runs the encoder again, in both."""
     ref_cfg, ref, params, port = arch_pair
+    extras = _extras(ref_cfg)
     cache, mine = ref.init_cache(2, 8), port.init_cache(2, 8)
     dec = jax.jit(ref.decode_step)
     for i in range(6):
-        want, cache = dec(params, jnp.asarray(tokens[:, i:i + 1]), cache)
-        got, mine = port.decode_step(torch.from_numpy(tokens[:, i:i + 1]), mine)
+        want, cache = dec(params, jnp.asarray(tokens[:, i:i + 1]), cache, _jnp(extras))
+        got, mine = port.decode_step(torch.from_numpy(tokens[:, i:i + 1]), mine, extras)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
 
 
@@ -390,14 +465,15 @@ def test_dense_arch_prefill_matches_own_decode(arch_pair, tokens):
     if ref_cfg.num_experts:
         assert any(kind.moe for kind in transformer.layer_kinds(port.cfg))
         return
-    full = port(torch.from_numpy(tokens[:, :6])).numpy()
+    extras = _extras(ref_cfg)
+    full = port(torch.from_numpy(tokens[:, :6]), extras).numpy()
     cache = port.init_cache(2, 6)
     for i in range(6):
-        logit, cache = port.decode_step(torch.from_numpy(tokens[:, i:i + 1]), cache)
+        logit, cache = port.decode_step(torch.from_numpy(tokens[:, i:i + 1]), cache, extras)
         np.testing.assert_allclose(logit.numpy(), full[:, i], rtol=0, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + SSM_ARCHS + CROSS_ARCHS)
 def test_serve_main_runs_each_arch_on_the_cpu(arch, capsys):
     assert serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
                        "--prompt-len", "3", "--gen", "2"]) == 0
@@ -460,3 +536,58 @@ def test_two_period_jamba_converts_in_the_reference_order(tokens):
     got, aux = port.logits_and_aux(torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TWO_PERIOD_TOL)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5, atol=1e-7)
+
+
+# --- the cross-attention families ---------------------------------------------------
+
+def _ref_greedy(ref, params, prompts, gen_len, extras):
+    """``repro.launch.serve.serve_loop``'s greedy loop with ``extras``
+    passed to each step (the reference's loop passes none)."""
+    cache = ref.init_cache(prompts.shape[0], prompts.shape[1] + gen_len)
+    dec = jax.jit(ref.decode_step)
+    for i in range(prompts.shape[1]):
+        logits, cache = dec(params, jnp.asarray(prompts[:, i:i + 1]), cache, extras)
+    toks, tok = [], jnp.argmax(logits, axis=-1)[:, None]
+    for _ in range(gen_len):
+        toks.append(np.asarray(tok)[:, 0])
+        logits, cache = dec(params, tok, cache, extras)
+        tok = jnp.argmax(logits, axis=-1)[:, None]
+    return np.stack(toks, axis=1)
+
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+def test_cross_arch_greedy_serve_loop_equals_reference(request, arch):
+    """With extras (whisper's as ``memory``, the encoder's output, as
+    ``serve.main`` serves it) the greedy tokens are the reference's;
+    without, both packages' ``serve_loop`` raise ``KeyError``, as the
+    reference's ``_memory_for`` does."""
+    ref_cfg, ref, params, port = request.getfixturevalue(_SHARED_PAIRS[arch])
+    prompts = np.random.default_rng(1).integers(0, 512, (2, 6))
+    extras = _extras(ref_cfg)
+    if ref_cfg.family == "audio":
+        memory = ref_transformer._encode_audio(params, jnp.asarray(extras["frames"]), ref_cfg)
+        extras = {"memory": np.array(memory)}
+    want = _ref_greedy(ref, params, prompts, 8, _jnp(extras))
+    got, _, _ = serve.serve_loop(port, torch.from_numpy(prompts), 8, extras=extras)
+    assert np.array_equal(got, want)
+    with pytest.raises(KeyError):
+        ref_serve.serve_loop(ref, params, jnp.asarray(prompts), 2)
+    with pytest.raises(KeyError):
+        serve.serve_loop(port, torch.from_numpy(prompts), 2)
+
+
+def test_two_period_vlm_converts_in_the_reference_order(tokens):
+    """10 layers, two periods of 5: the cross sublayers sit at layers 4
+    and 9, ``blocks[4]`` stacking both; reduced() has one period, where a
+    wrong order cannot show."""
+    ref_cfg = dataclasses.replace(ref_get_config("llama-3.2-vision-11b").reduced(),
+                                  num_layers=10)
+    _, ref, params, port = _pair("float32", seed=4, ref_cfg=ref_cfg)
+    assert params["blocks"][4]["cross"]["wq"].shape[0] == 2
+    assert [hasattr(b, "cross") for b in port.blocks] == [False] * 4 + [True] + \
+        [False] * 4 + [True]
+    extras = _extras(ref_cfg)
+    want = jax.jit(lambda p, t, e: ref.forward(p, t, e, remat=False)[0])(
+        params, jnp.asarray(tokens), _jnp(extras))
+    got = port(torch.from_numpy(tokens), extras)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
