@@ -193,7 +193,26 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               reference's does; their f32 parity (the VLM at one block
               period of 5 with 1601 image tokens, whisper at full size),
               prefill against own decode with the same extras within
-              1e-4.
+              1e-4;
+  8. train   single-device training (``Model.loss``, the reference's
+              AdamW, ``train.step``, the token pipeline): kernel D's
+              gradient (its forward on each route, the backward in torch
+              ops) against autograd through ``layers._dense_attention`` at
+              granite-8b's and whisper-base's train shapes, f32 within
+              1e-4 of the largest value and bf16 within one rounding step
+              more; one f32 train step of granite-8b, whisper-base and
+              mamba2-130m (their head and SSM layouts at 2 layers) on the
+              card against the CPU at 1 and 2 microbatches: loss, nll,
+              aux, grad_norm, updated params and moments, every parameter's
+              gradient nonzero, kernel D launched twice an attention
+              sublayer (remat); then bf16 at full width with remat on, 3
+              steps of train_4k's 4096 tokens from the token pipeline:
+              granite-8b at 8 of its 36 layers, whisper-base and
+              mamba2-130m at full size (step seconds, tokens/s, peak,
+              kernel D's launches a step, each loss; gates: finite loss,
+              params moved, every gradient nonzero, peak under 72 GB);
+              and kernel D at granite's train shape timed beside SDPA,
+              with the gradient's torch ops beside SDPA's backward.
 Then the nvidia-smi line, the kernels summary line, and the result line.
 Exits non-zero on any mismatch and when there is no CUDA device.
 """
@@ -221,17 +240,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, optim  # noqa: E402
 from repro_torch.api import config, faults, integrity  # noqa: E402
 from repro_torch.api.store import DedupStore, chunk_with  # noqa: E402
 from repro_torch.configs import get_config, get_shape  # noqa: E402
 from repro_torch.core import chunking, context_model, features, hashing, pipeline  # noqa: E402
-from repro_torch.data import workloads  # noqa: E402
+from repro_torch.data import TokenPipeline, TokenPipelineConfig, workloads  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, flash_attn, gear_hash, ingest, ops, shingle_embed, sim_topk)
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import make_model  # noqa: E402
+from repro_torch.models import layers, make_model  # noqa: E402
 from repro_torch.models.transformer import block_period, layer_kinds  # noqa: E402
+from repro_torch.train import step as train  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): device memory
 # rate, fp32 outside the tensor cores (kernels A-C do fp32 and 32-bit
@@ -2933,7 +2953,8 @@ def cross_family(dev, arch: str, gen) -> int:
 
     served = cross_extras(cfg, SERVE_BATCH, dev, gen, torch.bfloat16)
     if cfg.family == "audio":
-        served = {"memory": model.encode_audio(served["frames"])}
+        with torch.no_grad():
+            served = {"memory": model.encode_audio(served["frames"])}
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
                             generator=gen)
     ops.reset_launches()
@@ -2989,6 +3010,276 @@ def lm_families_phase(dev) -> int:
     emit("lm_families", part="summary", archs=list(FAMILY_ARCHS + CROSS_ARCHS),
          flash_attention_launches=launches, phase_s=time.perf_counter() - t0)
     return launches
+
+
+# --- phase 8: training ---------------------------------------------------------
+
+# train_4k's length (configs/base.py LM_SHAPES); its global batch of 256
+# cut to what one card holds at each arch's width; granite-8b's depth cut
+# from 36 layers to 8 (2.15 B parameters: bf16 params, grads and mu and
+# f32 nu, each held twice while the functional update runs, with the
+# model's own copy, reckon to about 48 GB; 16 layers would not fit 72 GB)
+TRAIN_LEN = get_shape("train_4k").seq_len
+TRAIN_STEPS = 3
+TRAIN_FULL = {"granite-8b": dict(layers=8, batch=4, micro=1),
+              "whisper-base": dict(layers=None, batch=8, micro=2),
+              "mamba2-130m": dict(layers=None, batch=8, micro=1)}
+TRAIN_PEAK_LIMIT = 72e9
+# the f32 step, card against CPU: each arch's head and SSM layout at 2
+# layers (whisper: 2 + 2), d_ff 512, vocabulary 4096; mamba2 over 300
+# tokens, past one SSD chunk; the step's optimizer is the CPU tests'
+# (tests/test_torch_train.py: eps 1e-3, so the first Adam step is a smooth
+# function of the gradient, not sign(g))
+TRAIN_PARITY_ARCHS = ("granite-8b", "whisper-base", "mamba2-130m")
+TRAIN_PARITY_CUT = dict(num_layers=2, d_ff=512, vocab_size=4096)
+TRAIN_PARITY_LEN = {"mamba2-130m": 300}
+TRAIN_PARITY_BATCH = 2
+TRAIN_PARITY_ADAMW = dict(learning_rate=1e-3, eps=1e-3, weight_decay=0.1)
+TRAIN_TOL = 1e-4
+# kernel D's gradient: (name, B, Tq, Tk, H, KV, hd, causal) at the train
+# shapes: granite-8b's self-attention at train_4k, whisper-base's causal
+# self-attention (GQA group 1), its cross over 1500 frames and its encoder
+GRAD_SHAPES = [
+    ("granite-8b train self", 1, 4096, 4096, 32, 8, 128, True),
+    ("whisper-base train self", 1, 4096, 4096, 8, 8, 64, True),
+    ("whisper-base train cross", 1, 4096, 1500, 8, 8, 64, False),
+    ("whisper-base encoder", 1, 1500, 1500, 8, 8, 64, False),
+]
+
+
+def grad_err(got, want, bf16: bool) -> tuple[float, float]:
+    """(max abs error, share of the bound used): the f32 bound TRAIN_TOL of
+    the tensor's largest value, plus, in bf16, one rounding step of each
+    value (BF16_ULP)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bound_t = TRAIN_TOL * float(want.abs().max()) + (BF16_ULP * want.abs() if bf16 else 0.0)
+    return float(diff.max()), float((diff / bound_t).max())
+
+
+def check_grads(dev, gen) -> list[dict]:
+    """Kernel D's forward (each route) with its gradient (torch ops) against
+    autograd through ``layers._dense_attention`` in f32 on the same
+    values: f32 inputs on the SIMT route, bf16 inputs (the f32 reference
+    on their rounded values) on the tensor cores."""
+    lines = []
+    for name, b, tq, tk, h, kv, hd, causal in GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(b, tq, tk, h, kv, hd, dtype, dev, gen)
+            do = torch.randn(b, tq, h, hd, device=dev, generator=gen).to(dtype)
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = dict(ops.LAUNCHES)
+            out = ops.flash_attention(*ins, causal=causal)
+            got = torch.autograd.grad(out, ins, do)
+            torch.cuda.synchronize()
+            route = flash_attn.route(dtype, hd)
+            if (ops.LAUNCHES["flash_attention"] - before["flash_attention"] != 1
+                    or ops.LAUNCHES["flash_attention_sm90"] - before["flash_attention_sm90"]
+                    != int(route == "sm90")):
+                fail(f"{name}: the gradient's forward did not launch kernel D once on {route}")
+            ref = [t.float().requires_grad_(True) for t in (q, k, v)]
+            want_out = layers._dense_attention(*ref, causal=causal)
+            want = torch.autograd.grad(want_out, ref, do.float())
+            errs = {}
+            for what, g, w in (("out", out, want_out), *zip(("dq", "dk", "dv"), got, want)):
+                if g.dtype != dtype:
+                    fail(f"{name}: {what} came back in {g.dtype}, not {dtype}")
+                errs[what] = grad_err(g.detach(), w.detach(), dtype == torch.bfloat16)
+            line = dict(name=name, dtype=str(dtype)[6:], route=route,
+                        shape=[b, tq, tk, h, kv, hd], causal=causal,
+                        max_abs_err={w: e for w, (e, _) in errs.items()},
+                        bound_used=max(u for _, u in errs.values()))
+            lines.append(line)
+            if line["bound_used"] > 1:
+                fail(f"kernel D's gradient != autograd of _dense_attention at {name} "
+                     f"{dtype}: {errs}")
+            del q, k, v, do, ins, out, got, ref, want_out, want
+    torch.cuda.empty_cache()
+    return lines
+
+
+def time_grad(dev, gen) -> dict:
+    """Kernel D at granite-8b's train shape (B 1, T 4096, 32 / 8, hd 128,
+    causal, bf16): the forward as phase attn_kernel times it, and the
+    gradient's torch ops beside SDPA's backward."""
+    _, b, t, _, h, kv, hd, _ = GRAD_SHAPES[0]
+    q, k, v = attn_inputs(b, t, t, h, kv, hd, torch.bfloat16, dev, gen)
+    row, plain = time_attn(q, k, v, "train shape")
+    del plain
+    do = torch.randn_like(q)
+    tr = lambda x: x.transpose(1, 2)
+    bwd_ms = time_ms(lambda: flash_attn.flash_attention_plain_grad(
+        tr(q), tr(k), tr(v), tr(do), True), reps=3, warmup=1)
+    ins = [tr(x).detach().requires_grad_(True) for x in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*ins, is_causal=True,
+                                                           enable_gqa=True)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(out, ins, tr(do), retain_graph=True),
+                         reps=5, warmup=2)
+    # the backward's least work in bf16: q, k, v and do read, dq, dk and dv
+    # written; the products S = QK^T, dP = dO V^T, dV = P^T dO, dQ = dS K
+    # and dK = dS^T Q over the causal half
+    moved = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
+    flops = 10.0 * b * h * t * t * hd / 2
+    bwd_bound, bwd_by = bound(moved, flops, BF16_FLOP_PER_S)
+    row.pop("flops")
+    del q, k, v, do, ins, out
+    torch.cuda.empty_cache()
+    return dict(row, backward_ms=bwd_ms, library_backward_ms=lib_bwd_ms,
+                backward_bound_ms=bwd_bound, backward_bound_by=bwd_by)
+
+
+def dead_leaves(state) -> list[str]:
+    """Leaves whose gradient was 0 everywhere: at step 1, mu = (1 - b1) g."""
+    return [k for k, m in state.opt_state.mu.items() if not bool((m != 0).any())]
+
+
+def train_parity(dev, arch: str, gen) -> None:
+    """One f32 train step, card against CPU, at 1 and at 2 microbatches:
+    loss, nll, aux, grad_norm relative and each moment leaf within
+    TRAIN_TOL of its largest value, each param leaf within TRAIN_TOL of its
+    largest plus 100 TRAIN_TOL lr (tests/test_torch_train.py's rule);
+    every parameter's gradient nonzero on the card (kernel D's output has
+    a backward, or wq, wk, wv and all before attention would get none);
+    kernel D launched twice a microbatch and attention sublayer (remat
+    recomputes the forward)."""
+    full = get_config(arch)
+    cut = dict(TRAIN_PARITY_CUT, dtype="float32")
+    if full.encoder_layers:
+        cut["encoder_layers"] = TRAIN_PARITY_CUT["num_layers"]
+    cfg = dataclasses.replace(full, **cut)
+    length = TRAIN_PARITY_LEN.get(arch, PARITY_LEN)
+    cpu = make_model(cfg, device="cpu", seed=5)
+    card = make_model(cfg, seed=5)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(11)
+    batch = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, TRAIN_PARITY_BATCH, length)
+                          ).batch(0)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (TRAIN_PARITY_BATCH, cfg.num_audio_frames, cfg.d_model)).astype(np.float32)
+    calls = kernel_d_calls(cfg)[0] - cfg.encoder_layers       # the remat'd decoder's
+    for micro in (1, 2):
+        tx = optim.adamw(**TRAIN_PARITY_ADAMW)
+        t0 = time.perf_counter()
+        want_state, want = train.make_train_step(cpu, tx, num_microbatches=micro)(
+            train.init_state(train.model_params(cpu), tx), batch)
+        cpu_s = time.perf_counter() - t0
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state, got = train.make_train_step(card, tx, num_microbatches=micro)(
+            train.init_state(train.model_params(card), tx), batch)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = ops.LAUNCHES["flash_attention"]
+        metric_err = {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-30)
+                      for k in want}
+        errs = {}
+        for what, mine, ref in (("params", state.params, want_state.params),
+                                ("mu", state.opt_state.mu, want_state.opt_state.mu),
+                                ("nu", state.opt_state.nu, want_state.opt_state.nu)):
+            used = 0.0
+            for name, w in ref.items():
+                extra = 100 * TRAIN_TOL * TRAIN_PARITY_ADAMW["learning_rate"] \
+                    if what == "params" else 0.0
+                lim = TRAIN_TOL * float(w.abs().max()) + extra
+                used = max(used, float((mine[name].cpu() - w).abs().max()) / max(lim, 1e-30))
+            errs[what] = used
+        dead = dead_leaves(state)
+        emit("train", part="parity", arch=arch, micro=micro, layers=cfg.num_layers,
+             encoder_layers=cfg.encoder_layers,
+             heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim], d_model=cfg.d_model,
+             ssm=[cfg.ssm_state, cfg.ssm_head_dim] if cfg.ssm_state else None,
+             batch=TRAIN_PARITY_BATCH, tokens=length, dtype="float32",
+             metrics={k: float(v) for k, v in got.items()}, metric_rel_err=metric_err,
+             bound_used=errs, tol=TRAIN_TOL, cpu_s=cpu_s, card_s=card_s,
+             flash_attention_launches=launches, zero_grad_leaves=dead)
+        if dead:
+            fail(f"{arch}: no gradient reached {dead} on the card")
+        if max(metric_err.values()) > TRAIN_TOL or max(errs.values()) > 1:
+            fail(f"{arch}: the card's f32 train step != the CPU's ({metric_err}, {errs})")
+        if launches != 2 * calls * micro + cfg.encoder_layers * micro:
+            fail(f"{arch}: the train step launched kernel D {launches} times")
+        del state, want_state
+    del cpu, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_full(dev, arch: str, gen) -> int:
+    """bf16 at full width (granite-8b's depth cut, TRAIN_FULL), remat on,
+    TRAIN_STEPS steps of train_4k's length from the token pipeline (whisper
+    with seeded random frames): step seconds, tokens/s, peak memory,
+    kernel D's launches a step, each step's loss. Gates: a finite loss,
+    params that changed, every gradient nonzero, the peak under
+    TRAIN_PEAK_LIMIT. Returns kernel D's launches."""
+    spec = TRAIN_FULL[arch]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=spec["layers"] or full.num_layers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = make_model(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = torch.cuda.memory_allocated(dev)
+    tx = optim.adamw(optim.cosine_schedule(3e-4, 1, 100), weight_decay=0.1,
+                     max_grad_norm=1.0)
+    train_step = train.make_train_step(model, tx, num_microbatches=spec["micro"])
+    state = train.init_state(train.model_params(model), tx)
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, spec["batch"], TRAIN_LEN))
+    frames = (cross_extras(cfg, spec["batch"], dev, gen, torch.bfloat16)
+              if cfg.family == "audio" else {})
+    first = {k: v[:64].clone() for k, v in state.params.items()}
+    losses, seconds, launches, norms = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = dict(pipe.batch(i), **frames)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(ops.LAUNCHES["flash_attention"])
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if i == 0:
+            dead = dead_leaves(state)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = [k for k, v in first.items() if not torch.equal(state.params[k][:64], v)]
+    tokens = spec["batch"] * TRAIN_LEN
+    steady = sorted(seconds[1:])[len(seconds[1:]) // 2]
+    emit("train", part="full", arch=arch, family=cfg.family, params=n_params,
+         layers=cfg.num_layers, full_layers=full.num_layers, dtype=cfg.dtype,
+         batch=spec["batch"], microbatches=spec["micro"], tokens=TRAIN_LEN, remat=True,
+         step_s=seconds, tokens_per_s=tokens / steady, losses=losses, grad_norms=norms,
+         flash_attention_launches_per_step=launches,
+         weight_bytes=weights, peak_bytes=peak, peak_limit=TRAIN_PEAK_LIMIT,
+         zero_grad_leaves=dead, leaves_unchanged=len(first) - len(moved))
+    if not all(np.isfinite(losses)):
+        fail(f"{arch}: a train step's loss is not finite: {losses}")
+    if dead or len(moved) != len(first):
+        fail(f"{arch}: {len(dead)} leaves got no gradient, {len(first) - len(moved)} "
+             "did not move")
+    if peak >= TRAIN_PEAK_LIMIT:
+        fail(f"{arch}: the train step's peak {peak / 1e9:.2f} GB passed the limit")
+    del model, state, train_step, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum(launches)
+
+
+def train_phase(dev) -> tuple[int, dict]:
+    """Phase 8; returns kernel D's launches in the full-width train steps
+    and the kernel line's train row."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    t0 = time.perf_counter()
+    grads = check_grads(dev, gen)
+    emit("train", part="kernel_grad", checks=grads, tol=TRAIN_TOL, bf16_ulp_rtol=BF16_ULP)
+    for arch in TRAIN_PARITY_ARCHS:
+        train_parity(dev, arch, gen)
+    launches = {arch: train_full(dev, arch, gen) for arch in TRAIN_FULL}
+    row = time_grad(dev, gen)
+    row["launches"] = launches["granite-8b"]
+    emit("train", part="summary", flash_attention_launches=launches, train_row=row,
+         phase_s=time.perf_counter() - t0)
+    return sum(launches.values()), row
 
 
 # stream bytes per version, versions, and the largest index kernel C scans
@@ -3072,6 +3363,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["flash_attention"] = lm_phase(dev) + lm_families_phase(dev)
+    train_launches, train_row = train_phase(dev)
+    launches["flash_attention"] += train_launches
 
     sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed, "sim_topk": sim_topk,
                "flash_attention": flash_attn}
@@ -3082,6 +3375,7 @@ def main() -> int:
     rows[0]["rabin_launches"] = launches["rabin"]
     rows[0]["gear_packed"] = gear_packed
     rows[0]["gear_packed_launches"] = launches["gear_packed"]
+    rows[3]["train_row"] = train_row
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

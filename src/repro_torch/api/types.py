@@ -14,11 +14,12 @@ only the fields this port fills).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import TYPE_CHECKING, Any, Sequence
 
 import numpy as np
 
-from repro_torch.core.chunking import Chunk
+if TYPE_CHECKING:  # chunking imports the kernels, which import core: no cycle at run time
+    from repro_torch.core.chunking import Chunk
 
 
 @dataclasses.dataclass

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing
-from repro_torch.kernels.ingest import range_max
+from repro_torch.kernels import ingest  # a module: ingest imports core, which imports this
 
 _FNV64_OFFSET = np.uint64(0xCBF29CE484222325)
 _FNV64_PRIME = np.uint64(0x100000001B3)
@@ -117,7 +117,7 @@ class NTransform:
         lens = torch.from_numpy(np.asarray(lengths, np.int64)).to(fps.device)
         s, e, tmax = starts[:, None], (starts + lens)[:, None], int(np.max(lengths))
         feats = torch.cat([
-            range_max((hashing.mul_u32(fps, int(m)) + int(a)) & hashing.U32, s, e, tmax)
+            ingest.range_max((hashing.mul_u32(fps, int(m)) + int(a)) & hashing.U32, s, e, tmax)
             for m, a in zip(self._m, self._a)], dim=1)              # [B, N]
         return _rows(self._super(_host_u64(feats)))
 
@@ -160,7 +160,7 @@ class Finesse:
         bounds = finesse_bounds(lengths, self.cfg.total_features)   # [B, t + 1]
         tmax = max(1, int(np.diff(bounds, axis=-1).max()))
         pos = starts[:, None] + torch.from_numpy(bounds).to(fps.device)
-        feats = range_max(fps, pos[:, :-1], pos[:, 1:], tmax)       # [B, t]
+        feats = ingest.range_max(fps, pos[:, :-1], pos[:, 1:], tmax)       # [B, t]
         return _rows(self._super(_host_u64(feats)))
 
 

@@ -6,7 +6,8 @@ position in parallel and emits two boundary-candidate maps
 (``kernels/ingest.scan_stream``). Only the greedy min/normal/max-size
 selection below walks the stream on the host, and it touches just the
 sparse candidate positions. Boundaries are bit-identical to serial
-FastCDC-with-reset whenever min_size >= 32 (the uint32 gear window).
+FastCDC-with-reset whenever min_size >= 32 (the uint32 gear window);
+``chunk_boundaries_serial`` is that serial walk, the test oracle.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch.core import hashing
 from repro_torch.kernels import ingest, ops
 
 
@@ -56,6 +58,28 @@ class Chunk:
     @property
     def digest(self) -> bytes:
         return hashlib.blake2b(self.data, digest_size=20).digest()
+
+
+def _as_bytes(data: bytes | np.ndarray) -> np.ndarray:
+    return (np.frombuffer(data, dtype=np.uint8)
+            if isinstance(data, (bytes, bytearray))
+            else np.asarray(data, dtype=np.uint8))
+
+
+def candidate_bitmaps(data: bytes | np.ndarray, cfg: ChunkerConfig,
+                      hashes: np.ndarray | None = None, *,
+                      device: str | torch.device | None = None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """(cand_s, cand_l) boolean maps of positions satisfying each mask.
+    Without ``hashes`` the gear hashes come from kernel A on ``device``
+    (the CUDA device unless ``"cpu"``)."""
+    if hashes is None:
+        buf = torch.from_numpy(_as_bytes(data).copy()).to(ops.resolve_device(device))
+        hashes = ops.gear_hashes(buf).cpu().numpy().view(np.uint32)
+    hashes = np.asarray(hashes).astype(np.uint32, copy=False)
+    cand_s = (hashes & np.uint32(cfg.mask_s)) == 0
+    cand_l = (hashes & np.uint32(cfg.mask_l)) == 0
+    return cand_s, cand_l
 
 
 def select_boundaries(
@@ -114,9 +138,7 @@ def chunk_scan(data: bytes | np.ndarray, cfg: ChunkerConfig,
     back, the host walks the boundaries. Returns the chunks and the
     device-resident ``StreamScan`` the detector reads without a round-trip
     (None for an empty stream)."""
-    buf = (np.frombuffer(data, dtype=np.uint8)
-           if isinstance(data, (bytes, bytearray))
-           else np.asarray(data, dtype=np.uint8))
+    buf = _as_bytes(data)
     n = len(buf)
     if n == 0:
         return [], None
@@ -126,7 +148,60 @@ def chunk_scan(data: bytes | np.ndarray, cfg: ChunkerConfig,
 
 
 def chunk_stream(data: bytes | np.ndarray, cfg: ChunkerConfig | None = None,
+                 hashes: np.ndarray | None = None, *,
                  device: str | torch.device | None = None) -> list[Chunk]:
     """Chunk a byte stream: kernel A's scan on ``device`` (the CUDA device
-    unless ``"cpu"``), then the host boundary walk."""
-    return chunk_scan(data, cfg or ChunkerConfig(), ops.resolve_device(device))[0]
+    unless ``"cpu"``), then the host boundary walk. ``hashes`` [n] (the
+    gear hash at every byte, uint32 or its int32 bits) may be precomputed,
+    as the reference allows; the walk then needs no device."""
+    cfg = cfg or ChunkerConfig()
+    if hashes is None:
+        return chunk_scan(data, cfg, ops.resolve_device(device))[0]
+    buf = _as_bytes(data)
+    if len(buf) == 0:
+        return []
+    cand_s, cand_l = candidate_bitmaps(buf, cfg, hashes)
+    return chunks_from_bounds(buf.tobytes(), select_boundaries(len(buf), cand_s, cand_l, cfg))
+
+
+def chunk_boundaries_serial(data: bytes, cfg: ChunkerConfig) -> np.ndarray:
+    """Bit-exact serial FastCDC (the hash reset at each chunk start), one
+    byte at a time on the host: the test oracle."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    n = len(buf)
+    bounds = [0]
+    start = 0
+    gear = hashing.GEAR_TABLE
+    while start < n:
+        if n - start <= cfg.min_size:
+            bounds.append(n)
+            break
+        h = 0
+        cut = -1
+        end1 = min(start + cfg.avg_size, n)
+        end2 = min(start + cfg.max_size, n)
+        i = start
+        # warm up to min_size (serial FastCDC hashes from the chunk start)
+        while i < start + cfg.min_size:
+            h = ((h << 1) + int(gear[buf[i]])) & 0xFFFFFFFF
+            i += 1
+        while i < end1:
+            h = ((h << 1) + int(gear[buf[i]])) & 0xFFFFFFFF
+            if (h & cfg.mask_s) == 0:
+                cut = i
+                break
+            i += 1
+        if cut < 0:
+            while i < end2:
+                h = ((h << 1) + int(gear[buf[i]])) & 0xFFFFFFFF
+                if (h & cfg.mask_l) == 0:
+                    cut = i
+                    break
+                i += 1
+        if cut < 0:
+            cut = end2 - 1
+        bounds.append(cut + 1)
+        start = cut + 1
+    if bounds[-1] != n:
+        bounds.append(n)
+    return np.asarray(bounds, dtype=np.int64)

@@ -23,8 +23,8 @@ import torch
 
 from repro_torch.api.detect import LegacyDetectMixin
 from repro_torch.api.registry import get_index, register_detector
-from repro_torch.api.store import DedupStore, chunk_with
-from repro_torch.api.types import DetectBatch, DetectResult, StoreStats
+from repro_torch.api.store import DedupStore, StreamSession, chunk_with  # noqa: F401  (v0 surface)
+from repro_torch.api.types import DetectBatch, DetectResult, IngestReport, StoreStats  # noqa: F401
 from repro_torch.core import baselines, chunking, context_model, features, similarity
 from repro_torch.kernels import ingest, ops
 

@@ -138,6 +138,30 @@ def sim_topk(q: torch.Tensor, index: torch.Tensor
     return _topk.sim_topk_cuda(q, index)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Kernel D with a gradient. The forward is the wrapper's dispatch by
+    device (kernel D on CUDA tensors, the plain version on CPU ones), run
+    with autograd off, so the plain version may work in place and the
+    kernel's output, which no autograd op made, still gets a backward.
+    The backward is ``flash_attn.flash_attention_plain_grad``: torch ops
+    that recompute the scores from the saved q, k and v; it launches no
+    kernel and counts nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _flash_attention_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        grads = _fa.flash_attention_plain_grad(q.transpose(1, 2), k.transpose(1, 2),
+                                               v.transpose(1, 2), do.transpose(1, 2),
+                                               ctx.causal)
+        return (*(g.transpose(1, 2).contiguous() for g in grads), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Model layout: q [B, Tq, H, hd], k/v [B, Tk, KV, hd] (H % KV == 0),
@@ -147,7 +171,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     at hd 64 or 128 runs on the tensor cores (``flash_attn_sm90.cu``, also
     counted in ``LAUNCHES["flash_attention_sm90"]``), anything else on the
     SIMT kernel (``flash_attn.cu``). ``LAUNCHES["flash_attention"]`` counts
-    both. A launch error raises; neither kernel stands in for the other."""
+    both. A launch error raises; neither kernel stands in for the other.
+    Where q, k or v requires grad, the output carries the gradient of
+    ``_FlashAttention`` (the same forward; the backward in torch ops)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"{name}: want float32 or bfloat16, got {t.dtype}")
@@ -157,14 +183,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.numel() == 0 or h % k.shape[2] != 0):
         raise ValueError(f"bad shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} (want H % KV == 0, none empty)")
+    if _on_cuda(q, k, v) and hd > _fa.MAX_HD:
+        raise ValueError(f"hd = {hd} exceeds the kernel's {_fa.MAX_HD}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _flash_attention_forward(q, k, v, causal)
+
+
+def _flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool) -> torch.Tensor:
+    """The dispatch of checked inputs: the plain version for CPU tensors,
+    kernel D by its route for CUDA ones."""
     if not _on_cuda(q, k, v):
         out = _fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                         v.transpose(1, 2), causal)
         return out.transpose(1, 2).contiguous()
-    if hd > _fa.MAX_HD:
-        raise ValueError(f"hd = {hd} exceeds the kernel's {_fa.MAX_HD}")
     LAUNCHES["flash_attention"] += 1
-    if _fa.route(q.dtype, hd) == "sm90":
+    if _fa.route(q.dtype, q.shape[3]) == "sm90":
         LAUNCHES["flash_attention_sm90"] += 1
         return _fa.flash_attention_sm90_cuda(q, k, v, causal)
     return _fa.flash_attention_cuda(q, k, v, causal)

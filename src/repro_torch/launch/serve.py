@@ -82,7 +82,8 @@ def stub_extras(model, batch: int) -> dict | None:
     x = torch.randn(batch, n, cfg.d_model, generator=gen, device=model.device)
     if cfg.family == "vlm":
         return {"images": x}
-    return {"memory": model.encode_audio(x)}
+    with torch.no_grad():
+        return {"memory": model.encode_audio(x)}
 
 
 def main(argv=None) -> int:

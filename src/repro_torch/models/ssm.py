@@ -144,26 +144,42 @@ def ssm_train(params: dict, x: torch.Tensor, cfg, chunk: int = 256) -> torch.Ten
     la = torch.cumsum(la, dim=-1)
     causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril_()
 
+    # under no_grad (serving) the decay matrix and the states are updated
+    # in place, which keeps jamba's prefill in memory; with autograd every
+    # step is out of place
+    inplace = not torch.is_grad_enabled()
     y = torch.empty(b, nc, chunk, heads, p, dtype=F32, device=x.device)
     h = torch.zeros(b, heads, n, p, dtype=F32, device=x.device)
     group = max(1, SSD_GROUP_BYTES // (4 * b * heads * chunk * chunk))
     for g0 in range(0, nc, group):
         g1 = min(nc, g0 + group)
         xb, bb, cb, lg = xc[g0:g1].contiguous(), bc[g0:g1], cc[g0:g1], la[g0:g1]
-        # intra-chunk (the dual quadratic form): (scores * decay) @ xb
-        decay = (lg[..., :, None] - lg[..., None, :]).exp_().masked_fill_(~causal, 0.0)
+        # intra-chunk (the dual quadratic form): (scores * decay) @ xb; the
+        # mask goes in before exp, so no exp of a later position's (positive)
+        # log-decay overflows into the product or its gradient
+        decay = (lg[..., :, None] - lg[..., None, :])
         scores = cb @ bb.transpose(-1, -2)                          # [G, B, Q, K]
-        y_g = decay.mul_(scores[:, :, None]) @ xb                   # [G, B, H, Q, P]
+        if inplace:
+            decay = decay.masked_fill_(~causal, -torch.inf).exp_().mul_(scores[:, :, None])
+        else:
+            decay = decay.masked_fill(~causal, -torch.inf).exp() * scores[:, :, None]
+        y_g = decay @ xb                                            # [G, B, H, Q, P]
         del decay
         # each chunk's own state: (B * tail) @ xb
         tail = torch.exp(lg[..., -1:] - lg)                         # [G, B, H, K]
         s_new = (bb.transpose(-1, -2)[:, :, None] * tail[..., None, :]) @ xb
         # the hand-off, chunk by chunk: states[c] is the state entering chunk c
         last = torch.exp(lg[..., -1])[..., None, None]              # [G, B, H, 1, 1]
-        states = torch.empty((g1 - g0 + 1,) + h.shape, dtype=F32, device=x.device)
-        states[0] = h
-        for c in range(g1 - g0):
-            torch.addcmul(s_new[c], states[c], last[c], out=states[c + 1])
+        if inplace:
+            states = torch.empty((g1 - g0 + 1,) + h.shape, dtype=F32, device=x.device)
+            states[0] = h
+            for c in range(g1 - g0):
+                torch.addcmul(s_new[c], states[c], last[c], out=states[c + 1])
+        else:
+            hs = [h]
+            for c in range(g1 - g0):
+                hs.append(torch.addcmul(s_new[c], hs[c], last[c]))
+            states = torch.stack(hs)
         h = states[-1]
         # inter-chunk: C @ states, decayed to each position
         y_g += (cb[:, :, None] @ states[:-1]) * torch.exp(lg)[..., None]

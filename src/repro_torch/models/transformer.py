@@ -8,10 +8,18 @@ llama-vision's period of 5, [attn + mlp] x 4 then attn + cross + mlp;
 whisper is an encoder stack and a decoder stack with a cross sublayer at
 every layer (``dec_cross``). The reference stacks each period-position's
 params and scans them; here the layers are an ``nn.ModuleList`` walked in
-order, each built from its kind, and the run is eager under
-``torch.no_grad`` (no remat: the port serves, it does not train yet). The
-MoE load-balance loss is summed over the sublayers as the reference's
-scan sums it (``logits_and_aux``).
+order, each built from its kind. The MoE load-balance loss is summed over
+the sublayers as the reference's scan sums it (``logits_and_aux``).
+
+Serving (``forward``, ``logits_and_aux``, ``prefill``, ``decode_step``)
+runs under ``torch.no_grad``, and every parameter is made with
+``requires_grad=False``, so serving builds no graph. Training is
+functional, as the reference's is: ``train.step`` calls ``Model.loss``
+through ``torch.func.functional_call`` with leaves that require grad, and
+``loss`` runs with autograd on. With ``remat`` each block is wrapped in
+``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
+and recomputed in the backward, the reference's ``jax.checkpoint`` with
+``nothing_saveable`` around each scanned body.
 
 ``extras`` is the reference's: ``images`` [B, T_img, d] (vlm), ``frames``
 [B, T_frames, d] (audio; the encoder runs over them at every call) or
@@ -33,6 +41,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -195,13 +204,13 @@ class Model(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return L.project(self.final_norm(x), head, 1)
 
-    @torch.no_grad()
     def encode_audio(self, frames) -> torch.Tensor:
         """The encoder stack (``_encode_audio``) over frame embeddings [B,
         T_frames, d] (a tensor or an array, on any device): each layer's
         non-causal self-attention (rotated at ``arange(T_frames)``) and
         GeLU MLP, then ``enc_norm`` -> the memory [B, T_frames, d] in the
-        model dtype."""
+        model dtype. It runs with autograd as the caller has it (``loss``
+        trains the encoder); a serving caller runs it under no_grad."""
         x = self._extra(frames)
         for block in self.encoder:
             x, _ = block(x, causal=False)
@@ -234,18 +243,41 @@ class Model(nn.Module):
         return self._logits(x), aux
 
     def _hidden(self, tokens: torch.Tensor, extras: dict | None,
-                cache: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                cache: dict | None = None, remat: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         memory = self._memory_for(extras or {})
         x = self._embed(tokens.to(self.device))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         pos = cache["pos"] if cache else None
+        remat = remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            x, a = block(x, cache=cache["layers"][i] if cache else None, pos=pos,
-                         memory=memory,
-                         cross_extra=self.dec_cross[i] if self.cfg.encoder_layers else None)
+            kwargs = dict(cache=cache["layers"][i] if cache else None, pos=pos, memory=memory,
+                          cross_extra=self.dec_cross[i] if self.cfg.encoder_layers else None)
+            if remat:
+                x, a = checkpoint(block, x, use_reentrant=False, **kwargs)
+            else:
+                x, a = block(x, **kwargs)
             if a is not None:
                 aux = aux + a
         return x, aux
+
+    def loss(self, batch: dict, remat: bool = True
+             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """The reference's ``Model.loss``: ``batch`` holds ``tokens`` and
+        ``labels`` [B, T] (tensors or arrays) and any extras under their
+        own keys. -> (nll + 1e-4 * mean(lse**2) + 0.01 * aux, {"nll",
+        "aux"}), all f32: the logits are cast to f32, lse is their
+        logsumexp and the gold logit is taken at each label. With autograd
+        on and ``remat``, each block is recomputed in the backward."""
+        extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+        x, aux = self._hidden(torch.as_tensor(batch["tokens"]), extras, remat=remat)
+        logits = self._logits(x).float()
+        labels = torch.as_tensor(batch["labels"]).to(device=self.device, dtype=torch.int64)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = torch.mean(lse - gold)
+        z_loss = 1e-4 * torch.mean(torch.square(lse))
+        return nll + z_loss + 0.01 * aux, {"nll": nll, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, extras: dict | None = None) -> torch.Tensor:

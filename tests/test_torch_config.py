@@ -244,6 +244,33 @@ def test_api_exports_are_reference_names():
         assert name in mine and getattr(api, name).__module__.startswith("repro_torch.api")
 
 
+# names a reference package exports whose module is not ported yet (ROADMAP
+# Queue 1 item 9: the cells of the distributed dry run)
+UNPORTED_EXPORTS = {"configs": {"cells"}}
+
+
+@pytest.mark.parametrize("pkg", ["api", "checkpoint", "configs", "core", "data", "kernels",
+                                 "models", "optim", "train"])
+def test_reference_exports_exist_in_the_port(pkg):
+    """The converse of ``test_api_exports_are_reference_names``: every
+    public name a reference package's ``__init__`` exports (its lazy
+    exports included) is importable from the port's package of the same
+    name, and is the port's own object."""
+    import importlib
+    import types
+    ref = importlib.import_module(f"repro.{pkg}")
+    mine = importlib.import_module(f"repro_torch.{pkg}")
+    names = {n for n, v in vars(ref).items()
+             if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    names |= set(getattr(ref, "_LAZY_EXPORTS", ()))
+    names -= UNPORTED_EXPORTS.get(pkg, set()) | {"annotations"}
+    missing = sorted(n for n in names if not hasattr(mine, n))
+    assert not missing, f"repro.{pkg} exports {missing}, repro_torch.{pkg} does not"
+    for n in names:
+        module = getattr(getattr(mine, n), "__module__", None) or "repro_torch"
+        assert module.startswith("repro_torch"), (n, module)
+
+
 # the trace and server knobs, each as the reference builds it: (knob dict,
 # what to compare)
 OBSERVE_SERVE_KNOBS = [
