@@ -212,7 +212,27 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               kernel D's launches a step, each loss; gates: finite loss,
               params moved, every gradient nonzero, peak under 72 GB);
               and kernel D at granite's train shape timed beside SDPA,
-              with the gradient's torch ops beside SDPA's backward.
+              with the gradient's torch ops beside SDPA's backward. Also
+              int8 gradient compression (``distributed.compress``): 5
+              error-feedback steps over grads of several shapes (lengths
+              off the 256-value block, a bf16 leaf) on the card and the
+              CPU, codes, scales, effective grads and residuals bit-equal;
+              and the three f32 steps again with ``GradCompressor`` over the
+              reference's leaves, card against CPU, the same bounds at
+              every element whose int8 code agrees (at most 1e-3 of the
+              codes may move by one, where the two grads straddle a
+              half-way point);
+  9. launch  the training launcher under the supervisor, as a user runs
+              them: ``supervisor --retries 2 -- launch.train --arch
+              whisper-base --full --steps 10 --batch 2 --seq 256
+              --checkpoint-every 3 --dedup-ckpt --fail-at 7`` as a
+              subprocess (rc 0, the crash at 7, the resume from 6, 10
+              steps, three ``[dedup-ckpt]`` lines with DCR >= 1; each
+              attempt's wall seconds); alongside it ``launch.train.main``
+              with the same arguments in this process, uninterrupted (step and save
+              seconds, peak memory, the launches of A, B, C and D); both
+              step-9 TrainStates restored onto the card must be equal bit
+              for bit.
 Then the nvidia-smi line, the kernels summary line, and the result line.
 Exits non-zero on any mismatch and when there is no CUDA device.
 """
@@ -240,15 +260,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import convert, optim  # noqa: E402
+from repro_torch import checkpoint, convert, optim  # noqa: E402
 from repro_torch.api import config, faults, integrity  # noqa: E402
 from repro_torch.api.store import DedupStore, chunk_with  # noqa: E402
 from repro_torch.configs import get_config, get_shape  # noqa: E402
 from repro_torch.core import chunking, context_model, features, hashing, pipeline  # noqa: E402
 from repro_torch.data import TokenPipeline, TokenPipelineConfig, workloads  # noqa: E402
+from repro_torch.distributed import compress  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, flash_attn, gear_hash, ingest, ops, shingle_embed, sim_topk)
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train as launch_train  # noqa: E402
 from repro_torch.models import layers, make_model  # noqa: E402
 from repro_torch.models.transformer import block_period, layer_kinds  # noqa: E402
 from repro_torch.train import step as train  # noqa: E402
@@ -2348,7 +2369,6 @@ def ckpt_equal(got: dict, want: dict) -> bool:
 def plain_checkpoint_drill(dev) -> dict:
     """checkpoint.store on a CUDA state dict: save, a .tmp directory left
     as a crashed writer would, latest_step, restore onto the card."""
-    from repro_torch import checkpoint
     model = torch.nn.Sequential(torch.nn.Linear(64, 32), torch.nn.LayerNorm(32)).to(dev)
     state = {"model": model.state_dict(),
              "emb": torch.randn(100, 16, device=dev).to(torch.bfloat16),
@@ -2525,7 +2545,9 @@ def tf32_phase(gpu: DedupStore, versions: list[bytes], want: list) -> None:
 # 32 to one prompt on one card; the serving batch; the parity run
 PREFILL_LEN = 32_768
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 64
-PROFILE_PROMPT, PROFILE_GEN = 8, 16
+# (the profiler's post-processing grows with the steps profiled: cut
+# from 8 + 16 steps to 4 + 8 to make room for phase launch)
+PROFILE_PROMPT, PROFILE_GEN = 4, 8
 PARITY_LAYERS, PARITY_LEN, PARITY_TOL = 4, 256, 1e-3
 
 
@@ -3133,6 +3155,86 @@ def dead_leaves(state) -> list[str]:
     return [k for k, m in state.opt_state.mu.items() if not bool((m != 0).any())]
 
 
+# int8 gradient compression (distributed/compress.py): grads of several
+# shapes, lengths off the 256-value block and a bf16 leaf, through 5
+# error-feedback steps on the card and on the CPU; the card's and the
+# CPU's raw grads in the compressed f32 step differ by rounding, which
+# moves a code by one where a value sits at a half-way point
+COMPRESS_SHAPES = {"wq": ((4096, 4096), torch.float32), "scale": ((4096,), torch.float32),
+                   "b257": ((257,), torch.float32), "conv": ((3, 300), torch.float32),
+                   "one": ((1,), torch.float32), "emb_bf16": ((51865, 64), torch.bfloat16)}
+COMPRESS_STEPS = 5
+COMPRESS_FLIP_SHARE = 1e-3
+
+
+class RawGradCompressor(compress.GradCompressor):
+    """``GradCompressor`` that keeps the raw grads it was given, on the CPU."""
+
+    def __call__(self, grads):
+        self.raw = {k: g.detach().cpu() for k, g in grads.items()}
+        return super().__call__(grads)
+
+
+def code_flips(grads: dict, other: dict, groups) -> dict[str, torch.Tensor]:
+    """Per param, where the int8 codes of two grad dicts (CPU tensors, the
+    same names) differ, quantized over ``groups``; fails where a code moved
+    by more than one."""
+    out = {}
+    grouped = {k for names in groups for k in names}
+    for names in [*groups, *([k] for k in grads if k not in grouped)]:
+        codes = [compress._quantize_leaf(torch.cat([g[k].reshape(-1).float() for k in names]))[0]
+                 for g in (grads, other)]
+        diff = (codes[0].int() - codes[1].int()).reshape(-1)
+        if int(diff.abs().max()) > 1:
+            fail(f"an int8 code of {names[0]} moved by {int(diff.abs().max())}")
+        at = 0
+        for k in names:
+            n = grads[k].numel()
+            out[k] = (diff[at:at + n] != 0).reshape(grads[k].shape)
+            at += n
+    return out
+
+
+def compress_parity(dev) -> None:
+    """``compress_decompress`` over COMPRESS_STEPS error-feedback steps on
+    the card and on the CPU from the same grads: codes, scales, effective
+    grads and residuals bit-equal; the card's wall ms a step."""
+    cpu_gen = torch.Generator().manual_seed(12)
+    res = {"cpu": None, "card": None}
+    unequal = []
+    card_ms = []
+    for i in range(COMPRESS_STEPS):
+        grads = {k: (torch.randn(shape, generator=cpu_gen) * 10.0 ** (-i)).to(dtype)
+                 for k, (shape, dtype) in COMPRESS_SHAPES.items()}
+        on = {"cpu": grads, "card": {k: g.to(dev) for k, g in grads.items()}}
+        out = {}
+        for side, g in on.items():
+            r = res[side] or {k: torch.zeros_like(v, dtype=torch.float32) for k, v in g.items()}
+            qs = {k: compress._quantize_leaf(v.float() + r[k]) for k, v in g.items()}
+            if side == "card":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            eff, res[side] = compress.compress_decompress(g, res[side])
+            if side == "card":
+                torch.cuda.synchronize()
+                card_ms.append((time.perf_counter() - t0) * 1e3)
+            out[side] = (qs, eff, res[side])
+        for k in COMPRESS_SHAPES:
+            (qa, ea, ra), (qb, eb, rb) = out["cpu"], out["card"]
+            pairs = [qa[k][0], qb[k][0].cpu()], [qa[k][1], qb[k][1].cpu()], \
+                [ea[k], eb[k].cpu()], [ra[k], rb[k].cpu()]
+            for what, (a, b) in zip(("codes", "scales", "effective", "residual"), pairs):
+                if a.dtype != b.dtype or not torch.equal(raw_bytes(a), raw_bytes(b)):
+                    unequal.append([i, k, what])
+    n = sum(torch.Size(shape).numel() for shape, _ in COMPRESS_SHAPES.values())
+    emit("train", part="compress",
+         shapes={k: [list(s), str(d)[6:]] for k, (s, d) in COMPRESS_SHAPES.items()},
+         elements=n, steps=COMPRESS_STEPS, bit_equal=not unequal, unequal=unequal[:10],
+         card_ms_per_step=card_ms)
+    if unequal:
+        fail(f"int8 compression differs between card and CPU: {unequal[:5]}")
+
+
 def train_parity(dev, arch: str, gen) -> None:
     """One f32 train step, card against CPU, at 1 and at 2 microbatches:
     loss, nll, aux, grad_norm relative and each moment leaf within
@@ -3158,19 +3260,26 @@ def train_parity(dev, arch: str, gen) -> None:
         batch["frames"] = rng.standard_normal(
             (TRAIN_PARITY_BATCH, cfg.num_audio_frames, cfg.d_model)).astype(np.float32)
     calls = kernel_d_calls(cfg)[0] - cfg.encoder_layers       # the remat'd decoder's
-    for micro in (1, 2):
+    groups = convert.lm_leaf_groups(cpu)
+    for micro, compressed in ((1, False), (2, False), (1, True)):
         tx = optim.adamw(**TRAIN_PARITY_ADAMW)
+        hooks = [RawGradCompressor(groups) if compressed else None for _ in range(2)]
         t0 = time.perf_counter()
-        want_state, want = train.make_train_step(cpu, tx, num_microbatches=micro)(
+        want_state, want = train.make_train_step(
+            cpu, tx, num_microbatches=micro, compress_grads=hooks[0])(
             train.init_state(train.model_params(cpu), tx), batch)
         cpu_s = time.perf_counter() - t0
         ops.reset_launches()
         t0 = time.perf_counter()
-        state, got = train.make_train_step(card, tx, num_microbatches=micro)(
+        state, got = train.make_train_step(
+            card, tx, num_microbatches=micro, compress_grads=hooks[1])(
             train.init_state(train.model_params(card), tx), batch)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         launches = ops.LAUNCHES["flash_attention"]
+        flipped = code_flips(hooks[1].raw, hooks[0].raw, groups) if compressed else {}
+        n_flipped = sum(int(m.sum()) for m in flipped.values())
+        n_elems = sum(p.numel() for p in state.params.values())
         metric_err = {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-30)
                       for k in want}
         errs = {}
@@ -3182,10 +3291,15 @@ def train_parity(dev, arch: str, gen) -> None:
                 extra = 100 * TRAIN_TOL * TRAIN_PARITY_ADAMW["learning_rate"] \
                     if what == "params" else 0.0
                 lim = TRAIN_TOL * float(w.abs().max()) + extra
-                used = max(used, float((mine[name].cpu() - w).abs().max()) / max(lim, 1e-30))
+                diff = (mine[name].cpu() - w).abs()
+                if name in flipped:
+                    diff = diff[~flipped[name]]
+                worst = float(diff.max()) if diff.numel() else 0.0
+                used = max(used, worst / max(lim, 1e-30))
             errs[what] = used
         dead = dead_leaves(state)
-        emit("train", part="parity", arch=arch, micro=micro, layers=cfg.num_layers,
+        emit("train", part="parity", arch=arch, micro=micro, compress_grads=compressed,
+             code_flips=[n_flipped, n_elems] if compressed else None, layers=cfg.num_layers,
              encoder_layers=cfg.encoder_layers,
              heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim], d_model=cfg.d_model,
              ssm=[cfg.ssm_state, cfg.ssm_head_dim] if cfg.ssm_state else None,
@@ -3199,7 +3313,9 @@ def train_parity(dev, arch: str, gen) -> None:
             fail(f"{arch}: the card's f32 train step != the CPU's ({metric_err}, {errs})")
         if launches != 2 * calls * micro + cfg.encoder_layers * micro:
             fail(f"{arch}: the train step launched kernel D {launches} times")
-        del state, want_state
+        if n_flipped > COMPRESS_FLIP_SHARE * n_elems:
+            fail(f"{arch}: {n_flipped} of {n_elems} int8 codes differ between card and CPU")
+        del state, want_state, hooks
     del cpu, card
     gc.collect()
     torch.cuda.empty_cache()
@@ -3272,6 +3388,7 @@ def train_phase(dev) -> tuple[int, dict]:
     t0 = time.perf_counter()
     grads = check_grads(dev, gen)
     emit("train", part="kernel_grad", checks=grads, tol=TRAIN_TOL, bf16_ulp_rtol=BF16_ULP)
+    compress_parity(dev)
     for arch in TRAIN_PARITY_ARCHS:
         train_parity(dev, arch, gen)
     launches = {arch: train_full(dev, arch, gen) for arch in TRAIN_FULL}
@@ -3280,6 +3397,181 @@ def train_phase(dev) -> tuple[int, dict]:
     emit("train", part="summary", flash_attention_launches=launches, train_row=row,
          phase_s=time.perf_counter() - t0)
     return sum(launches.values()), row
+
+
+# --- phase 9: the training launcher, the supervisor and the --dedup-ckpt mirror -
+
+# whisper-base at full size (97.2 M params; it trains on one card, phase
+# train): its path launches kernel D forward with D's gradient, and the
+# mirror kernels A, B and C over the params of each checkpoint (about
+# 194 MB of bf16 a save). Saves at steps 3, 6 and 9; the first process
+# crashes at 7 and the second resumes from 6.
+LAUNCH_ARCH = "whisper-base"
+LAUNCH_ARGS = ["--arch", LAUNCH_ARCH, "--full", "--steps", "10", "--batch", "2",
+               "--seq", "256", "--checkpoint-every", "3", "--dedup-ckpt"]
+LAUNCH_FAIL_AT, LAUNCH_RESUME, LAUNCH_LAST = 7, 6, 9
+LAUNCH_TIMEOUT_S = 400
+DCR_LINE = re.compile(r"^\[dedup-ckpt\] DCR=(\d+\.\d+) stored=(\d+)MiB raw=(\d+)MiB$")
+
+
+def supervised_run(ckpt_dir: str, out: dict) -> None:
+    """``supervisor --retries 2 -- launch.train LAUNCH_ARGS --fail-at 7`` as
+    a subprocess in its own session (killed with its worker past
+    LAUNCH_TIMEOUT_S): fills ``out`` with the process, its lines, each
+    attempt's wall seconds and the rc."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.supervisor", "--retries", "2", "--",
+           sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_ARGS,
+           "--fail-at", str(LAUNCH_FAIL_AT), "--ckpt-dir", ckpt_dir]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = out["proc"] = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env,
+        start_new_session=True)
+    timer = threading.Timer(LAUNCH_TIMEOUT_S, stop_supervised, (out,))
+    timer.start()
+    lines, attempts, mark = [], [], t0
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("[supervisor] worker"):
+                now = time.perf_counter()
+                attempts.append(now - mark)
+                mark = now
+        out["rc"] = proc.wait()
+    finally:
+        timer.cancel()
+        out.update(wall_s=time.perf_counter() - t0, attempt_s=attempts, log=lines)
+
+
+def stop_supervised(out: dict) -> None:
+    """Kill the supervised run's session (the supervisor and its worker)."""
+    proc = out.get("proc")
+    if proc is not None and proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+
+
+def inprocess_run(ckpt_dir: str) -> dict:
+    """``launch.train.main(LAUNCH_ARGS)`` in this process, uninterrupted:
+    its lines, step seconds (synchronised), the seconds of each
+    checkpoint save and each mirror save, the peak memory, and the
+    launches of each kernel (counts set to 0 just before)."""
+    step_s, save_s, mirror_s = [], [], []
+    real_build, real_save, real_store = launch_train.build, launch_train.save, \
+        launch_train.DedupCheckpointStore
+
+    def timed(fn, into):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def build(args):
+        cfg, model, tx, step_fn, pipe = real_build(args)
+        return cfg, model, tx, timed(step_fn, step_s), pipe
+
+    def store(*args, **kwargs):
+        st = real_store(*args, **kwargs)
+        st.save = timed(st.save, mirror_s)
+        return st
+
+    launch_train.build, launch_train.save = build, timed(real_save, save_s)
+    launch_train.DedupCheckpointStore = store
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = launch_train.main([*LAUNCH_ARGS, "--ckpt-dir", ckpt_dir])
+    finally:
+        launch_train.build, launch_train.save = real_build, real_save
+        launch_train.DedupCheckpointStore = real_store
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    return dict(rc=rc, wall_s=wall, step_s=step_s, save_s=save_s, mirror_s=mirror_s,
+                peak_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+                log=out.getvalue().splitlines())
+
+
+def raw_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view(torch.uint8)
+
+
+def launch_phase(dev) -> dict[str, int]:
+    """Phase 9: the supervised run (crash at 7, resume at 6, 10 steps,
+    three mirror lines, each DCR >= 1) alongside the same arguments run
+    in this process without a crash; then both step-9 TrainStates restored
+    onto the card: params, mu, nu and the steps equal bit for bit.
+    Returns the in-process run's kernel launches."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    try:
+        # the supervised run goes alongside the in-process one (both on the
+        # card; the host's disk and cores shared)
+        sup = {"rc": None}
+        worker = threading.Thread(target=supervised_run,
+                                  args=(os.path.join(root, "supervised"), sup))
+        worker.start()
+        try:
+            inproc = inprocess_run(os.path.join(root, "inprocess"))
+            worker.join(LAUNCH_TIMEOUT_S)
+        finally:
+            stop_supervised(sup)
+            worker.join()
+        sup_dcr = [float(m.group(1)) for m in map(DCR_LINE.match, sup["log"]) if m]
+        dcr = [float(m.group(1)) for m in map(DCR_LINE.match, inproc["log"]) if m]
+        steps = {name: checkpoint.list_steps(os.path.join(root, name))
+                 for name in ("supervised", "inprocess")}
+        model = make_model(get_config(LAUNCH_ARCH), seed=0)
+        like = train.init_state(train.model_params(model), optim.adamw(3e-3))
+        got = {name: checkpoint.restore(os.path.join(root, name), like, LAUNCH_LAST)
+               for name in ("supervised", "inprocess")}
+        a = checkpoint.store.flatten_with_path(got["supervised"])
+        b = checkpoint.store.flatten_with_path(got["inprocess"])
+        on_card = all(t.device.type == "cuda" for _, t in a + b)
+        differ = [pa for (pa, ta), (_, tb) in zip(a, b)
+                  if ta.dtype != tb.dtype or not torch.equal(raw_bytes(ta), raw_bytes(tb))]
+        del model, like, got, a, b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("launch", part="supervised", args=LAUNCH_ARGS, fail_at=LAUNCH_FAIL_AT,
+         rc=sup["rc"], wall_s=sup["wall_s"], attempt_s=sup["attempt_s"],
+         dcr_lines=[ln for ln in sup["log"] if DCR_LINE.match(ln)],
+         first_process_dcr_rose=len(sup_dcr) >= 2 and sup_dcr[1] > sup_dcr[0],
+         log=sup["log"])
+    emit("launch", part="inprocess", rc=inproc["rc"], wall_s=inproc["wall_s"],
+         step_s=inproc["step_s"], checkpoint_save_s=inproc["save_s"],
+         mirror_save_s=inproc["mirror_s"], peak_bytes=inproc["peak_bytes"],
+         launches=inproc["launches"], dcr_lines=[ln for ln in inproc["log"]
+                                                 if DCR_LINE.match(ln)], log=inproc["log"])
+    emit("launch", part="resume", steps=steps, restored_on_card=on_card,
+         bit_equal=not differ, differing_leaves=differ[:10],
+         phase_s=time.perf_counter() - t_phase)
+    log = "\n".join(sup["log"])
+    want = (f"[failure-injection] crashing at step {LAUNCH_FAIL_AT}",
+            f"[resume] restored step {LAUNCH_RESUME} from", "[done] 10 steps in ",
+            "[supervisor] worker finished (attempt 1)")
+    if sup["rc"] != 0 or not all(w in log for w in want):
+        fail(f"the supervised launcher run failed (rc {sup['rc']}): {sup['log'][-12:]}")
+    if len(sup_dcr) != 3 or min(sup_dcr) < 1.0:
+        fail(f"the supervised run's mirror printed {sup_dcr}, want three DCRs >= 1")
+    if inproc["rc"] != 0 or len(dcr) != 3 or min(dcr) < 1.0:
+        fail(f"the in-process launcher run failed: {inproc['log'][-6:]}")
+    if steps["supervised"] != [3, 6, LAUNCH_LAST] or steps["inprocess"] != [3, 6, LAUNCH_LAST]:
+        fail(f"checkpoints at {steps}, want [3, 6, {LAUNCH_LAST}] in each run")
+    if not on_card or differ:
+        fail(f"the resumed run's step-{LAUNCH_LAST} state != the uninterrupted run's "
+             f"(on the card: {on_card}): {differ[:10]}")
+    lc = card_launches("the launcher's main path", counts=inproc["launches"])
+    lc["flash_attention"] = inproc["launches"]["flash_attention"]
+    if lc["flash_attention"] == 0:
+        fail("the launcher's main path launched no flash_attention")
+    return lc
 
 
 # stream bytes per version, versions, and the largest index kernel C scans
@@ -3365,6 +3657,8 @@ def main() -> int:
     launches["flash_attention"] = lm_phase(dev) + lm_families_phase(dev)
     train_launches, train_row = train_phase(dev)
     launches["flash_attention"] += train_launches
+    for k, v in launch_phase(dev).items():
+        launches[k] += v
 
     sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed, "sim_topk": sim_topk,
                "flash_attention": flash_attn}

@@ -21,7 +21,7 @@ to ``step_<N>/``: a crashed writer never leaves a readable-but-corrupt
 checkpoint, and a restart takes ``latest_step()``.
 
 ``restore`` puts each leaf on the device and in the dtype of ``like``'s
-leaf at the same place.
+leaf at the same place, and gives each dict ``like``'s key order.
 """
 from __future__ import annotations
 
@@ -87,10 +87,14 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
     if kids is None:
         return next(leaves)
     if isinstance(like, dict):
+        # leaves come in flatten order (sorted keys); the dict keeps like's
+        # order, which a consumer may depend on (a train state's global
+        # norm sums its leaves in dict order)
         keys = list(like) if isinstance(like, collections.OrderedDict) else sorted(like)
+        values = {key: _unflatten(like[key], leaves) for key in keys}
         out = type(like)() if isinstance(like, collections.OrderedDict) else {}
-        for key in keys:
-            out[key] = _unflatten(like[key], leaves)
+        for key in like:
+            out[key] = values[key]
         return out
     if isinstance(like, (list, tuple)):
         items = [_unflatten(v, leaves) for v in like]

@@ -15,8 +15,9 @@ at n > 1 the batch splits along its first axis, each microbatch's grads
 come from ``torch.autograd.grad`` in the param dtype, are cast to f32,
 summed and divided by n, and the loss and metrics are means. The
 optimizer is any ``repro_torch.optim.GradientTransform``.
-``compress_grads`` takes the grads before the update (none is ported yet:
-the reference's int8 compression comes with the distributed code).
+``compress_grads`` takes the grads before the update and returns the
+grads the update uses: ``distributed.compress.GradCompressor`` (int8 with
+error feedback), as in the reference.
 """
 from __future__ import annotations
 
@@ -93,7 +94,11 @@ def make_train_step(model: nn.Module, tx: optim.GradientTransform, *,
                     compress_grads: Optional[Callable] = None,
                     remat: bool = True):
     """Returns train_step(state, batch) -> (state, metrics); metrics hold
-    ``nll``, ``aux``, ``loss`` and ``grad_norm`` (f32 0-d tensors)."""
+    ``nll``, ``aux``, ``loss`` and ``grad_norm`` (f32 0-d tensors).
+    ``compress_grads``: a hook on the grad dict before the update, e.g.
+    ``distributed.compress.GradCompressor(convert.lm_leaf_groups(model))``
+    for the reference's int8 compression; ``grad_norm`` is then the norm
+    of what it returns, as in the reference."""
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         params = state.params
