@@ -171,12 +171,12 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               memory with the weights, for MoE the share of routing
               assignments capacity dropped); mamba2 also at long_500k's
               524,288 tokens; qwen3-moe, mamba2 and jamba also a profiled
-              prefill and serve_loop at batch 4, prompt 64, 16 new tokens
+              prefill and serve_loop at batch 4, prompt 16, 16 new tokens
               (tokens/s, drops in the prompt steps and in generation);
               then, for those six and grok-1, f32 parity at the arch's
               full head and SSM layout with depth 4 (jamba: one period of
               8), d_ff 512, vocabulary 4096 and at most 16 experts, over
-              256 tokens (mamba2 600, jamba 300: past one SSD chunk): the
+              256 tokens (mamba2 and jamba 300: past one SSD chunk): the
               card's prefill against the CPU's on the same weights within
               1e-3, differing routing decisions counted, each a near tie
               (margin < 1e-6); all but qwen3-moe and grok-1 also against
@@ -185,7 +185,7 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               size with seeded random extras (images [1, 1601, 4096],
               frames [1, 1500, 512]): a 32,768-token prefill (48 and 18
               launches of D, all on the tensor cores: self, cross and
-              encoder sublayers), serve_loop at batch 4, prompt 64, 16 new
+              encoder sublayers), serve_loop at batch 4, prompt 16, 16 new
               tokens with images or the encoder's output as memory (8 and
               6 launches a step), a step with the extras as f32 host
               tensors equal to the step with them on the card, and
@@ -232,7 +232,20 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               with the same arguments in this process, uninterrupted (step and save
               seconds, peak memory, the launches of A, B, C and D); both
               step-9 TrainStates restored onto the card must be equal bit
-              for bit.
+              for bit;
+  10. mesh   the sharded train step on a device mesh: ``launch.mesh.
+              make_host_mesh()`` (one NCCL rank, 1 x 1 ("data", "model")),
+              qwen3-moe-30b-a3b at full width and 2 of its 48 layers
+              (1.85 B parameters) under ``default_rules(cfg)`` (MoE's "ep"
+              branch, its all_to_all pair a real NCCL call on the one
+              rank), params laid out by ``distribute_params``: 3 bf16
+              steps at batch 2 x 2,048 tokens on the mesh, then the same 3
+              without it (losses, grad norms, the largest param
+              difference, step seconds, peak memory, kernel D's launches
+              inside the steps, equal on both; losses and grad norms
+              within 1e-3 relative); one f32 step at 1 x 1,024 on the
+              mesh and without it, loss and grad norm within 1e-6
+              relative. The process group is destroyed at the end.
 Then the nvidia-smi line, the kernels summary line, and the result line.
 Exits non-zero on any mismatch and when there is no CUDA device.
 """
@@ -2669,7 +2682,10 @@ FAMILY_DEPTH = {"jamba-v0.1-52b": 8}
 # long_500k's length, for an arch with a sub-quadratic mixer and nothing else
 # (mamba2-130m: attention-free)
 LONG_LEN = get_shape("long_500k").seq_len
-FAMILY_SERVE_GEN = 16
+# the families' serve_loop: batch 4, a 16-token prompt (token by token, as
+# the reference's serve_loop fills the cache; cut from 64 to make room for
+# phase mesh) and 16 new tokens
+FAMILY_SERVE_PROMPT, FAMILY_SERVE_GEN = 16, 16
 # the cross-attention families, at full size (llama-3.2-vision-11b is
 # 10.11 B parameters, 20.2 GB in bf16): a prefill with seeded random
 # extras (images [1, 1601, 4096]; frames [1, 1500, 512] through the
@@ -2689,7 +2705,7 @@ FAMILY_PARITY_CUT = dict(num_layers=PARITY_LAYERS, d_ff=512, vocab_size=4096,
                          dtype="float32")
 FAMILY_PARITY_EXPERTS = 16
 # past one 256-token SSD chunk; mamba2's not a multiple of it
-FAMILY_PARITY_LEN = {"mamba2-130m": 600, "jamba-v0.1-52b": 300}
+FAMILY_PARITY_LEN = {"mamba2-130m": 300, "jamba-v0.1-52b": 300}
 NEAR_TIE = 1e-6
 
 
@@ -2813,15 +2829,16 @@ def family_prefill(dev, arch: str, gen) -> int:
         emit("lm_families", part="prefill_profile", arch=arch, tokens=PREFILL_LEN,
              wall_s=wall_p, device_s=device_s, device_busy_share=device_s / wall_p,
              top_device_ms=top)
-        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
-                                generator=gen)
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, FAMILY_SERVE_PROMPT),
+                                device=dev, generator=gen)
         ops.reset_launches()
         with moe_routes() as rec:
             out, prefill_s, decode_s = serve.serve_loop(model, prompts, FAMILY_SERVE_GEN)
-        prompt_calls = slice(0, SERVE_PROMPT * n_moe)
-        emit("lm_families", part="serve", arch=arch, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
-             gen=FAMILY_SERVE_GEN, prefill_s=prefill_s, decode_s=decode_s,
-             prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_s,
+        prompt_calls = slice(0, FAMILY_SERVE_PROMPT * n_moe)
+        emit("lm_families", part="serve", arch=arch, batch=SERVE_BATCH,
+             prompt=FAMILY_SERVE_PROMPT, gen=FAMILY_SERVE_GEN, prefill_s=prefill_s,
+             decode_s=decode_s,
+             prefill_tokens_per_s=SERVE_BATCH * FAMILY_SERVE_PROMPT / prefill_s,
              decode_tokens_per_s=SERVE_BATCH * FAMILY_SERVE_GEN / decode_s,
              flash_attention_launches=ops.LAUNCHES["flash_attention"],
              dropped_share_prompt=dropped_share(rec, prompt_calls),
@@ -2853,6 +2870,7 @@ def family_parity(dev, arch: str, gen) -> None:
     reference's two differ too. qwen3-moe and grok-1, MoE in every layer
     and top-8 of 16 after the cut, where near ties between the two paths
     are common, are exempt from the decode check."""
+    t0 = time.perf_counter()
     full = get_config(arch)
     period = block_period(full)
     cut = dict(FAMILY_PARITY_CUT, num_layers=period * max(1, PARITY_LAYERS // period))
@@ -2910,7 +2928,7 @@ def family_parity(dev, arch: str, gen) -> None:
         if not torch.allclose(got, step, rtol=tol, atol=tol):
             fail(f"{arch}: prefill != token-by-token decode (max abs err {derr})")
         del model
-    emit("lm_families", part="parity", **line)
+    emit("lm_families", part="parity", seconds=time.perf_counter() - t0, **line)
     del card
     torch.cuda.empty_cache()
 
@@ -2977,12 +2995,12 @@ def cross_family(dev, arch: str, gen) -> int:
     if cfg.family == "audio":
         with torch.no_grad():
             served = {"memory": model.encode_audio(served["frames"])}
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
-                            generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, FAMILY_SERVE_PROMPT),
+                            device=dev, generator=gen)
     ops.reset_launches()
     out, prefill_s, decode_s = serve.serve_loop(model, prompts, FAMILY_SERVE_GEN,
                                                 extras=served)
-    steps = SERVE_PROMPT + FAMILY_SERVE_GEN
+    steps = FAMILY_SERVE_PROMPT + FAMILY_SERVE_GEN
     serve_launches = ops.LAUNCHES["flash_attention"]
     serve_sm90 = ops.LAUNCHES["flash_attention_sm90"]
     # the extras as f32 tensors on the host: cast and moved to the card
@@ -2995,10 +3013,11 @@ def cross_family(dev, arch: str, gen) -> int:
         no_extras = None
     except KeyError as e:
         no_extras = f"KeyError: {e}"
-    emit("lm_families", part="serve", arch=arch, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
-         gen=FAMILY_SERVE_GEN, extras={k: list(v.shape) for k, v in served.items()},
+    emit("lm_families", part="serve", arch=arch, batch=SERVE_BATCH,
+         prompt=FAMILY_SERVE_PROMPT, gen=FAMILY_SERVE_GEN,
+         extras={k: list(v.shape) for k, v in served.items()},
          prefill_s=prefill_s, decode_s=decode_s,
-         prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_s,
+         prefill_tokens_per_s=SERVE_BATCH * FAMILY_SERVE_PROMPT / prefill_s,
          decode_tokens_per_s=SERVE_BATCH * FAMILY_SERVE_GEN / decode_s,
          flash_attention_launches=serve_launches, flash_attention_per_step=serve_launches / steps,
          host_extras_step_equal=bool(torch.equal(got, want)), without_extras=no_extras,
@@ -3578,6 +3597,150 @@ def launch_phase(dev) -> dict[str, int]:
 BASE, VERSIONS, BIG_N = 32 << 20, 4, 1 << 20
 
 
+# --- phase 10: the sharded train step on a device mesh --------------------------
+
+# qwen3-moe-30b-a3b at full width (d 2048, 32 / 4 heads at hd 64, 128 experts
+# top-8, vocabulary 151,936) and 2 of its 48 layers: 1.85 B parameters,
+# about 18.5 GB of bf16 train state at 10 bytes a parameter
+MESH_ARCH, MESH_LAYERS = "qwen3-moe-30b-a3b", 2
+MESH_BATCH, MESH_LEN, MESH_STEPS = 2, 2048, 3
+MESH_F32_BATCH, MESH_F32_LEN = 1, 1024
+MESH_RTOL = 1e-6
+# the bf16 steps on and off the mesh: one rank runs the same local ops, so
+# their losses and grad norms agree far inside this (equal on an H100); a
+# lookup or a gradient routed through another op shows here (a bf16
+# embedding gradient summed in f32 moved the grad norm by 18 %)
+MESH_BF16_RTOL = 1e-3
+
+
+def mesh_run(model, init: dict, batches: list, tx, mesh, rules) -> dict:
+    """The train step over ``batches`` from ``init``: on ``mesh`` under
+    ``use_rules(rules, mesh)`` with the params laid out by
+    ``distribute_params``, or without a mesh (``mesh`` None). Returns the
+    metrics, step seconds, peak memory, kernel D's launches inside the
+    steps, the NCCL all_to_all calls, and the final params (plain)."""
+    import torch.distributed as tdist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding
+
+    calls = [0]
+    a2a = tdist.all_to_all_single
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return a2a(*args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    step = train.make_train_step(model, tx)
+    scope = sharding.use_rules(rules, mesh) if mesh is not None else contextlib.nullcontext()
+    losses, norms, seconds = [], [], []
+    tdist.all_to_all_single = counted
+    try:
+        with scope:
+            params = (sharding.distribute_params(init, mesh, rules) if mesh is not None
+                      else dict(init))
+            state = train.init_state(params, tx)
+            del params
+            ops.reset_launches()
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            launches = dict(ops.LAUNCHES)
+    finally:
+        tdist.all_to_all_single = a2a
+    final = {k: (v.full_tensor() if isinstance(v, DTensor) else v)
+             for k, v in state.params.items()}
+    placements = {tuple(map(str, v.placements)) for v in state.params.values()
+                  if isinstance(v, DTensor)}
+    del state
+    return dict(losses=losses, grad_norms=norms, step_s=seconds, final=final,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                flash_attention=launches["flash_attention"],
+                flash_attention_sm90=launches["flash_attention_sm90"],
+                nccl_all_to_all=calls[0], placements=sorted(placements))
+
+
+def mesh_phase(dev) -> int:
+    """Phase 10 (see the module docstring); returns kernel D's launches in
+    the mesh steps."""
+    import torch.distributed as tdist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as launch_mesh
+
+    t0 = time.perf_counter()
+    mesh = launch_mesh.make_host_mesh()
+    try:
+        backend = tdist.get_backend()
+        if backend != "nccl" or mesh.device_type != "cuda" or mesh.shape != {"data": 1,
+                                                                           "model": 1}:
+            fail(f"mesh: want a 1 x 1 NCCL mesh on the card, got {mesh} over {backend}")
+        full = get_config(MESH_ARCH)
+        rows, total = {}, 0
+        for dtype, b, n, steps in (("bfloat16", MESH_BATCH, MESH_LEN, MESH_STEPS),
+                                   ("float32", MESH_F32_BATCH, MESH_F32_LEN, 1)):
+            cfg = dataclasses.replace(full, num_layers=MESH_LAYERS, dtype=dtype)
+            rules = sharding.default_rules(cfg)
+            if rules.moe_mode != "ep":
+                fail(f"mesh: {MESH_ARCH}'s default rules take moe_mode {rules.moe_mode}")
+            model = make_model(cfg, seed=0)
+            init = train.model_params(model)     # the step is pure: both runs start here
+            pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, b, n))
+            batches = [pipe.batch(i) for i in range(steps)]
+            tx = optim.adamw(3e-4, weight_decay=0.1)
+            on = mesh_run(model, init, batches, tx, mesh, rules)
+            off = mesh_run(model, init, batches, tx, None, None)
+            diff = max(float((on["final"][k].float() - off["final"][k].float()).abs().max())
+                       for k in init)
+            rel = {k: [abs(x - y) / max(abs(y), 1e-30) for x, y in zip(on[k], off[k])]
+                   for k in ("losses", "grad_norms")}
+            per_step = 2 * sum(k.mixer == "attn" for k in layer_kinds(cfg))   # remat
+            row = dict(arch=MESH_ARCH, dtype=dtype, layers=cfg.num_layers,
+                       full_layers=full.num_layers,
+                       params=sum(v.numel() for v in init.values()), batch=b, tokens=n,
+                       steps=steps, mesh=mesh.shape, backend=backend,
+                       moe_mode=rules.moe_mode, placements=on["placements"],
+                       **{f"{k}_mesh": on[k] for k in ("losses", "grad_norms", "step_s",
+                                                       "peak_bytes", "flash_attention",
+                                                       "flash_attention_sm90",
+                                                       "nccl_all_to_all")},
+                       **{f"{k}_no_mesh": off[k] for k in ("losses", "grad_norms", "step_s",
+                                                           "peak_bytes", "flash_attention")},
+                       rel_diff=rel, max_param_diff=diff)
+            emit("mesh", part=dtype, **row)
+            rows[dtype] = row
+            if not all(np.isfinite(on["losses"] + on["grad_norms"])):
+                fail(f"mesh {dtype}: a loss or grad norm is not finite: {row}")
+            if on["flash_attention"] <= 0 or on["flash_attention"] != off["flash_attention"] \
+                    or on["flash_attention"] != per_step * steps:
+                fail(f"mesh {dtype}: kernel D launched {on['flash_attention']} times on the "
+                     f"mesh, {off['flash_attention']} without; want {per_step * steps}")
+            if dtype == "bfloat16" and on["flash_attention_sm90"] != on["flash_attention"]:
+                fail(f"mesh: {on['flash_attention_sm90']} of kernel D's bf16 launches ran "
+                     "on the tensor cores")
+            if on["nccl_all_to_all"] <= 0 or off["nccl_all_to_all"] != 0:
+                fail(f"mesh {dtype}: {on['nccl_all_to_all']} NCCL all_to_all calls on the "
+                     f"mesh, {off['nccl_all_to_all']} without")
+            if max(max(v) for v in rel.values()) > (MESH_RTOL if dtype == "float32"
+                                                     else MESH_BF16_RTOL):
+                fail(f"mesh: the {dtype} steps on the mesh != without it: {rel}")
+            total += on["flash_attention"]
+            del model, init, on, off
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit("mesh", part="summary", flash_attention_launches=total,
+             phase_s=time.perf_counter() - t0)
+        return total
+    finally:
+        tdist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3659,6 +3822,8 @@ def main() -> int:
     launches["flash_attention"] += train_launches
     for k, v in launch_phase(dev).items():
         launches[k] += v
+    mesh_launches = mesh_phase(dev)
+    launches["flash_attention"] += mesh_launches
 
     sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed, "sim_topk": sim_topk,
                "flash_attention": flash_attn}
@@ -3670,6 +3835,7 @@ def main() -> int:
     rows[0]["gear_packed"] = gear_packed
     rows[0]["gear_packed_launches"] = launches["gear_packed"]
     rows[3]["train_row"] = train_row
+    rows[3]["mesh_launches"] = mesh_launches
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

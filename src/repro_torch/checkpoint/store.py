@@ -22,6 +22,14 @@ checkpoint, and a restart takes ``latest_step()``.
 
 ``restore`` puts each leaf on the device and in the dtype of ``like``'s
 leaf at the same place, and gives each dict ``like``'s key order.
+
+Sharded trees (the elastic restore of the reference's ``deserialize``):
+a ``DTensor`` leaf is saved as its full tensor, so the files are those
+of an unsharded save of the same values. Such a save is collective:
+every rank of the default process group calls it, every rank takes part
+in each gather, and rank 0 alone writes. ``restore`` lays a leaf out as
+``like``'s DTensor leaf is, on its mesh and placements, whatever mesh
+saved it.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _is_namedtuple(node: Any) -> bool:
@@ -157,13 +167,36 @@ def deserialize(blobs: dict[str, bytes], manifest: dict, like: Any) -> Any:
         t = _bytes_to_leaf(raw, meta)
         if isinstance(target, torch.Tensor):
             t = t.to(device=target.device, dtype=target.dtype)
+        if isinstance(target, DTensor):
+            # each rank holds the whole leaf and keeps its own shards
+            t = distribute_tensor(t, target.device_mesh, target.placements, src_data_rank=None)
         out.append(t)
     return _unflatten(like, iter(out))
+
+
+def _gathered(tree: Any) -> tuple[Any, bool]:
+    """(the tree with each DTensor leaf as its full tensor, whether it had
+    any): every rank of the leaf's mesh takes part in each gather."""
+    flat = flatten_with_path(tree)
+    if not any(isinstance(leaf, DTensor) for _, leaf in flat):
+        return tree, False
+    full = [leaf.full_tensor() if isinstance(leaf, DTensor) else leaf for _, leaf in flat]
+    return _unflatten(tree, iter(full)), True
 
 
 def save(ckpt_dir: str | Path, tree: Any, step: int) -> Path:
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
+    tree, sharded = _gathered(tree)
+    if sharded:
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, final, tree, step)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, final, tree, step)
+
+
+def _write(ckpt_dir: Path, final: Path, tree: Any, step: int) -> Path:
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
     if tmp.exists():
         shutil.rmtree(tmp)

@@ -1,7 +1,6 @@
-"""Transformer layers (port of ``repro.models.layers`` outside a mesh):
-RMSNorm, RoPE (partial rotary included), GQA attention, the SwiGLU and
-GeLU MLPs and top-k routed experts with capacity (MoE), as
-``nn.Module``s.
+"""Transformer layers (port of ``repro.models.layers``): RMSNorm, RoPE
+(partial rotary included), GQA attention, the SwiGLU and GeLU MLPs and
+top-k routed experts with capacity (MoE), as ``nn.Module``s.
 
 Every parameter keeps the reference's layout (``wq`` [d, H, hd], ``wk`` /
 ``wv`` [d, KV, hd], ``wo`` [H, hd, d], ``w_gate`` / ``w_up`` / ``w_in``
@@ -30,8 +29,16 @@ Attention routes by what it is given:
 
 MoE routing, dispatch and combine are torch ops, as the reference
 computes them outside any Pallas kernel; the experts' products are
-batched matmuls, the reference's ``pe`` einsums. Only the reference's
-no-mesh branch is ported (``moe`` raises if given a mesh).
+batched matmuls, the reference's ``pe`` einsums.
+
+On a device mesh (``distributed.sharding.use_rules(rules, mesh)``, the
+params and activations DTensors) the sublayers annotate their
+activations with the reference's ``constrain`` calls. Attention runs
+kernel D inside ``shard_map`` on each rank's batch rows and q heads, with
+the kv heads those q heads use; ``moe`` takes the reference's ``"ep"``
+(experts over "model", one ``all_to_all`` pair) or ``"tp"`` (expert FFNs
+split over "model", a ``psum``) branch. The KV-cache decode path does not
+run on a mesh.
 """
 from __future__ import annotations
 
@@ -40,7 +47,9 @@ import functools
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -170,6 +179,15 @@ class Attention(nn.Module):
         q = project(x, self.wq, 1)
         k = project(src, self.wk, 1)
         v = project(src, self.wv, 1)
+        q = shd.constrain(q, "batch", "seq", "heads", None)
+        k = shd.constrain(k, "batch", "seq", "kv_heads", None)
+        if isinstance(q, DTensor):
+            if kv_cache is not None:
+                raise NotImplementedError("decode with a KV cache does not run on a mesh")
+            out = _attention_on_mesh(q, k, v, cfg, causal=causal and memory is None,
+                                     rotate=memory is None)
+            out = shd.constrain(out, "batch", "seq", "heads", None)
+            return shd.constrain(project(out, self.wo, 2), "batch", "seq", "d_model")
         if memory is None:
             if pos is None:
                 positions = torch.arange(x.shape[1], device=x.device)
@@ -189,6 +207,56 @@ class Attention(nn.Module):
             out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                       causal=causal and memory is None)
         return project(out, self.wo, 2)
+
+
+def _local_kv_heads(h: int, kvh: int, m: int, i: int) -> list[int] | slice:
+    """The kv heads that shard i of m (q heads ``[i*h/m, (i+1)*h/m)``)
+    uses, as kernel D wants them: a slice where the shard's q heads map
+    onto it in GQA order (q head j -> kv head j // group), else one kv
+    head a q head (group 1)."""
+    g, hl = h // kvh, h // m
+    want = [(i * hl + j) // g for j in range(hl)]
+    lo, hi = want[0], want[-1] + 1
+    n = hi - lo
+    if hl % n == 0 and all(w - lo == j // (hl // n) for j, w in enumerate(want)):
+        return slice(lo, hi)
+    return want
+
+
+def _attention_on_mesh(q, k, v, cfg, *, causal: bool, rotate: bool):
+    """Kernel D inside ``shard_map``: q split by ("batch", "seq",
+    "heads"), k and v by ("batch", "seq", "kv_heads"); each rank rotates
+    its rows (positions ``arange(T)``) and attends with the kv heads its q
+    heads use. Heads that do not divide their axes are replicated (GSPMD
+    pads them; DTensor's uneven shards are not split here)."""
+    mesh = shd.current_mesh()
+    h, kvh = q.shape[2], k.shape[2]
+    q_spec = shd.even_spec(shd.activation_spec("batch", "seq", "heads", None), q.shape, mesh)
+    kv_spec = shd.even_spec(shd.activation_spec("batch", "seq", "kv_heads", None), k.shape,
+                            mesh)
+    if q_spec[1] is not None or kv_spec[1] is not None:
+        raise NotImplementedError("sequence-parallel attention is not ported")
+    heads, kv_heads = q_spec[2], kv_spec[2]
+    if kv_heads is not None and kv_heads != heads:
+        raise NotImplementedError(f"kv heads over {kv_heads} with q heads over {heads}")
+    m = shd.axes_size(heads, mesh)
+
+    def local(ql, kl, vl):
+        if m > 1 and kv_heads is None:
+            i = 0
+            for ax in (heads,) if isinstance(heads, str) else heads:
+                i = i * mesh.shape[ax] + shd.axis_index(ax)
+            sel = _local_kv_heads(h, kvh, m, i)
+            kl, vl = kl[:, :, sel], vl[:, :, sel]
+        if rotate:
+            positions = torch.arange(ql.shape[1], device=ql.device)
+            ql = apply_rope(ql, positions, cfg.rope_fraction, cfg.rope_theta)
+            kl = apply_rope(kl, positions, cfg.rope_fraction, cfg.rope_theta)
+        return ops.flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                                   causal=causal)
+
+    return shd.shard_map(local, mesh=mesh, in_specs=(q_spec, kv_spec, kv_spec),
+                         out_specs=q_spec)(q, k, v)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -218,7 +286,8 @@ class MLP(nn.Module):
             h = nn.functional.silu(g.float()).to(x.dtype) * u
         else:
             h = gelu(project(x, self.w_in, 1).float()).to(x.dtype)
-        return project(h, self.w_down, 1)
+        h = shd.constrain(h, "batch", "seq", "d_ff")
+        return shd.constrain(project(h, self.w_down, 1), "batch", "seq", "d_model")
 
 
 # --- MoE: top-k routing with capacity, local dispatch (the no-mesh branch) ------
@@ -340,17 +409,20 @@ def _load_balance_loss(probs: torch.Tensor, expert: torch.Tensor, e: int, k: int
     return e * torch.sum(f * p)
 
 
-def moe(params: dict, x: torch.Tensor, cfg, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+def moe(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed experts with capacity over x [B, S, d] -> (out [B, S,
-    d] in x's dtype, aux loss): the reference's branch outside a mesh,
-    with its capacity ``min(ceil(t*kv*capacity_factor/E_v), t)`` at every
-    t, decode included. The expert-parallel branch is not ported: a mesh
-    raises."""
-    if mesh is not None:
-        raise NotImplementedError("MoE over a device mesh is not yet ported")
+    d] in x's dtype, aux loss). Outside a mesh (or on one without a
+    "model" axis): the local dispatch at the capacity
+    ``min(ceil(t*kv*capacity_factor/E_v), t)`` at every t, decode
+    included. On a mesh (``use_rules(rules, mesh)``), the reference's
+    ``"ep"`` or ``"tp"`` mode in ``shard_map``, its token split, local
+    capacity and collectives."""
     b, s, d = x.shape
     e, k, vs = cfg.num_experts, cfg.experts_per_token, cfg.moe_ffn_shards
     ev, kv = e * vs, k * vs
+    mesh, rules = shd.current_mesh(), shd.current_rules()
+    if mesh is not None and "model" in mesh.shape:
+        return _moe_on_mesh(params, x, cfg, mesh, rules)
     t = b * s
     cap = min(int(np.ceil(t * kv * cfg.capacity_factor / ev)), t)
     buf, slot, _, gate_flat, keep, probs, expert = _route_and_dispatch(
@@ -360,3 +432,60 @@ def moe(params: dict, x: torch.Tensor, cfg, mesh=None) -> tuple[torch.Tensor, to
     out = _combine(y, slot, gate_flat, keep, t, kv)
     aux = _load_balance_loss(probs, expert, e, k)
     return out.to(x.dtype).reshape(b, s, d), aux
+
+
+def _moe_on_mesh(params: dict, x: torch.Tensor, cfg, mesh, rules):
+    """The reference's two distributed modes (``layers.py:360-418``):
+    "ep" splits the tokens over every mesh axis (the sequence over "model"
+    where it divides), routes each shard at its own capacity, sends each
+    expert's slots to its owner with one ``all_to_all`` pair over "model"
+    and runs the experts locally; "tp" splits the tokens over the batch
+    axes only, runs every expert with its FFN dim split over "model" and
+    ``psum``s the row-parallel ``e_down``. The aux loss is the ``pmean``
+    of the shards'."""
+    b, s, d = x.shape
+    e, k, vs = cfg.num_experts, cfg.experts_per_token, cfg.moe_ffn_shards
+    ev, kv = e * vs, k * vs
+    m_ax = mesh.shape["model"]
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    dp = int(np.prod([mesh.shape[a] for a in batch_axes]))
+    mode = rules.moe_mode if rules else ("ep" if ev % m_ax == 0 else "tp")
+
+    seq_split = m_ax if (mode == "ep" and s % m_ax == 0) else 1
+    x_spec = shd.P(batch_axes if b % dp == 0 else None,
+                   "model" if seq_split > 1 else None, None)
+    b_loc = b // dp if b % dp == 0 else b
+    t_loc = b_loc * (s // seq_split)
+    cap = max(1, int(np.ceil(t_loc * kv * cfg.capacity_factor / ev)))
+
+    def _wspec(n):
+        if mode == "ep":
+            return shd.P("model", None, None)
+        return shd.P(None, "model", None) if n == "e_down" else shd.P(None, None, "model")
+
+    enames = sorted(n for n in params if n.startswith("e_"))
+    in_specs = (x_spec, shd.P(None, None), tuple(_wspec(n) for n in enames))
+    aux_axes = batch_axes + (("model",) if seq_split > 1 or mode == "tp" else ())
+
+    def local_fn(x_loc, router, ws):
+        wp = dict(zip(enames, ws))
+        bl, sl, _ = x_loc.shape
+        t = bl * sl
+        buf, slot, _, gate_flat, keep, probs, expert = _route_and_dispatch(
+            x_loc.reshape(t, d), router, e, k, cap, vs)
+        if mode == "ep":
+            recv = shd.all_to_all(buf, "model", split_axis=0, concat_axis=1)  # [Ev/m, m*C, d]
+            y = _expert_ffn(wp, recv)
+            back = shd.all_to_all(y, "model", split_axis=1, concat_axis=0)    # [Ev, C, d]
+        else:
+            back = shd.psum(_expert_ffn(wp, buf), "model")    # row-parallel e_down
+        out = _combine(back.reshape(ev * cap, d), slot, gate_flat, keep, t, kv)
+        aux = _load_balance_loss(probs, expert, e, k)
+        if aux_axes:
+            aux = shd.pmean(aux, aux_axes)
+        return out.to(x_loc.dtype).reshape(bl, sl, d), aux
+
+    fn = shd.shard_map(local_fn, mesh=mesh, in_specs=in_specs,
+                       out_specs=(x_spec, shd.P()), check_vma=False)
+    out, aux = fn(x, params["router"], tuple(params[n] for n in enames))
+    return shd.constrain(out, "batch", "seq", "d_model"), aux

@@ -36,6 +36,7 @@ step, as the reference does (it keeps no cross-attention cache).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -44,6 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -158,15 +160,33 @@ class Block(nn.Module):
         return x, None
 
 
+# the families whose every sublayer runs on a device mesh (the SSM mixer and
+# the cross sublayers do not yet)
+MESH_FAMILIES = ("dense", "moe")
+
 # the audio encoder's sublayer: self-attention (run non-causal) and an MLP
 ENCODER_KIND = SublayerKind("attn", False, False, True)
+
+
+def _lookup_on_mesh(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` on the mesh: each rank looks its ("batch", "seq")
+    rows up in the table gathered whole, with the op the plain path uses
+    (so its gradient is the same scatter-add); the table's gradient is
+    summed over the ranks. DTensor's own lookup in a vocab-sharded table
+    cannot redistribute its gradient, and its indexing fails to shard in
+    torch 2.11."""
+    mesh = shd.current_mesh()
+    spec = shd.even_spec(shd.activation_spec("batch", "seq"), tokens.shape, mesh)
+    return shd.shard_map(lambda t, ids: t[ids], mesh=mesh, in_specs=(shd.P(None, None), spec),
+                         out_specs=shd.P(*spec, None))(table, tokens)
 
 
 class Model(nn.Module):
     """An LM of any family on one device. ``device=None`` means CUDA (and
     raises where there is none); pass ``device="cpu"`` for the plain path.
     The init is drawn on the device from ``torch.Generator(device)
-    .manual_seed(seed)`` with ``dense_init``'s std rule. A tied head
+    .manual_seed(seed)`` with ``dense_init``'s std rule (``device="meta"``
+    gives the shapes alone). A tied head
     (``tie_embeddings``) has no ``lm_head``: the logits use ``embed.T``.
     An encoder-decoder (``encoder_layers``) also holds ``encoder`` (its
     layers), ``enc_norm`` and ``dec_cross`` (each decoder layer's cross
@@ -179,7 +199,8 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = ops.resolve_device(device)
         dev, dt = self.device, L.dtype_of(cfg)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # a meta model (shapes only, for layouts) draws nothing
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         self.kinds = layer_kinds(cfg)
         self.blocks = nn.ModuleList(Block(cfg, kind, gen, dev) for kind in self.kinds)
         self.embed = nn.Parameter(
@@ -198,11 +219,13 @@ class Model(nn.Module):
                                            for _ in range(cfg.num_layers))
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens].to(L.dtype_of(self.cfg))
+        x = _lookup_on_mesh(self.embed, tokens) if isinstance(tokens, shd.DTensor) \
+            else self.embed[tokens]
+        return shd.constrain(x.to(L.dtype_of(self.cfg)), "batch", "seq", "d_model")
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return L.project(self.final_norm(x), head, 1)
+        return shd.constrain(L.project(self.final_norm(x), head, 1), "batch", "seq", "vocab")
 
     def encode_audio(self, frames) -> torch.Tensor:
         """The encoder stack (``_encode_audio``) over frame embeddings [B,
@@ -245,16 +268,25 @@ class Model(nn.Module):
     def _hidden(self, tokens: torch.Tensor, extras: dict | None,
                 cache: dict | None = None, remat: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        if shd.current_mesh() is not None and self.cfg.family not in MESH_FAMILIES:
+            raise NotImplementedError(f"{self.cfg.name}: the {self.cfg.family} family does "
+                                      "not run on a mesh yet")
         memory = self._memory_for(extras or {})
-        x = self._embed(tokens.to(self.device))
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        x = self._embed(shd.as_global(tokens.to(self.device), "batch", "seq"))
+        aux = shd.as_global(torch.zeros((), dtype=torch.float32, device=self.device))
         pos = cache["pos"] if cache else None
         remat = remat and cache is None and torch.is_grad_enabled()
+        # the recompute runs in the backward, on the autograd engine's own
+        # thread for CUDA tensors: it takes the sharding rules and mesh of
+        # the forward with it
+        rules, mesh = shd.current_rules(), shd.current_mesh()
+        rules_ctx = lambda: (contextlib.nullcontext(), shd.use_rules(rules, mesh))
         for i, block in enumerate(self.blocks):
             kwargs = dict(cache=cache["layers"][i] if cache else None, pos=pos, memory=memory,
                           cross_extra=self.dec_cross[i] if self.cfg.encoder_layers else None)
             if remat:
-                x, a = checkpoint(block, x, use_reentrant=False, **kwargs)
+                x, a = checkpoint(block, x, use_reentrant=False, context_fn=rules_ctx,
+                                  **kwargs)
             else:
                 x, a = block(x, **kwargs)
             if a is not None:
@@ -272,9 +304,12 @@ class Model(nn.Module):
         extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
         x, aux = self._hidden(torch.as_tensor(batch["tokens"]), extras, remat=remat)
         logits = self._logits(x).float()
-        labels = torch.as_tensor(batch["labels"]).to(device=self.device, dtype=torch.int64)
+        labels = shd.as_global(torch.as_tensor(batch["labels"]).to(
+            device=self.device, dtype=torch.int64), "batch", "seq")
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        # DTensor's gather from a vocab-sharded tensor fails in its masked
+        # reduction: the gold logit is taken from the vocab gathered whole
+        gold = torch.gather(shd.unshard(logits, -1), -1, labels[..., None])[..., 0]
         nll = torch.mean(lse - gold)
         z_loss = 1e-4 * torch.mean(torch.square(lse))
         return nll + z_loss + 0.01 * aux, {"nll": nll, "aux": aux}

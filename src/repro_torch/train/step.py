@@ -1,5 +1,5 @@
 """Train and eval step builders (port of ``repro.train.step``), on one
-device.
+device or on a device mesh.
 
 The step is functional, as the reference's is: ``TrainState.params`` is a
 dict ``{name: tensor}`` keyed by ``Model.named_parameters()``, and the
@@ -18,6 +18,13 @@ optimizer is any ``repro_torch.optim.GradientTransform``.
 ``compress_grads`` takes the grads before the update and returns the
 grads the update uses: ``distributed.compress.GradCompressor`` (int8 with
 error feedback), as in the reference.
+
+On a mesh the step runs unchanged inside ``distributed.sharding.
+use_rules(rules, mesh)`` with params laid out by ``sharding.
+distribute_params``: the params, the optimizer state and the grads are
+DTensors, each grad in its param's layout (a param replicated over an
+axis gets its grad all-reduced there, as GSPMD does), and the metrics
+come back as plain tensors.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch import optim
 
@@ -79,7 +87,22 @@ def loss_and_grads(model: nn.Module, params: dict, batch: dict, remat: bool = Tr
 
     with torch.enable_grad():
         loss, metrics, grads = _call(model, leaves, run, batch)
-    return loss, metrics, dict(zip(leaves, grads))
+    return _plain(loss), {k: _plain(v) for k, v in metrics.items()}, {
+        k: _like(g, params[k]) for k, g in zip(leaves, grads)}
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its param's layout: on a mesh, the gradient of a param
+    replicated over an axis comes out as a partial sum there, and this is
+    the all-reduce GSPMD puts after the backward."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _plain(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a mesh's scalars are replicated DTensors)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def _split(x, n: int, i: int):
@@ -105,8 +128,7 @@ def make_train_step(model: nn.Module, tx: optim.GradientTransform, *,
         if num_microbatches == 1:
             loss, metrics, grads = loss_and_grads(model, params, batch, remat)
         else:
-            grads = {k: torch.zeros(p.shape, dtype=F32, device=p.device)
-                     for k, p in params.items()}
+            grads = {k: torch.zeros_like(p, dtype=F32) for k, p in params.items()}
             losses, ms = [], []
             for i in range(num_microbatches):
                 mb = {k: _split(v, num_microbatches, i) for k, v in batch.items()}
@@ -125,7 +147,7 @@ def make_train_step(model: nn.Module, tx: optim.GradientTransform, *,
         params = optim.apply_updates(params, deltas)
         metrics = dict(metrics)
         metrics["loss"] = loss
-        metrics["grad_norm"] = optim.global_norm(grads)
+        metrics["grad_norm"] = _plain(optim.global_norm(grads))
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return train_step
@@ -138,6 +160,6 @@ def make_eval_step(model: nn.Module):
     def eval_step(params: dict, batch: dict) -> dict:
         with torch.no_grad():
             loss, metrics = _call(model, params, lambda m, b: m.loss(b, remat=False), batch)
-        return dict(metrics, loss=loss)
+        return {k: _plain(v) for k, v in dict(metrics, loss=loss).items()}
 
     return eval_step

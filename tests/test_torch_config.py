@@ -245,11 +245,8 @@ def test_api_exports_are_reference_names():
 
 
 # names a reference package exports whose module is not ported yet (ROADMAP
-# Queue 1 item 9: the cells of the distributed dry run, and the sharding
-# rules of the device mesh that repro.distributed re-exports)
-UNPORTED_EXPORTS = {"configs": {"cells"},
-                    "distributed": {"ShardingRules", "activation_spec", "constrain",
-                                    "default_rules", "param_pspecs", "shard_map", "use_rules"}}
+# Queue 1 item 9: the cells of the distributed dry run)
+UNPORTED_EXPORTS = {"configs": {"cells"}}
 
 
 @pytest.mark.parametrize("pkg", ["api", "checkpoint", "configs", "core", "data", "distributed",

@@ -162,7 +162,23 @@ def test_moe_module_holds_the_reference_layout():
 
 
 def test_a_mesh_raises():
+    """``moe`` reads its mesh from ``use_rules``, as the reference does: a
+    mesh passed as an argument raises, and a mesh without a "model" axis
+    runs the local dispatch (the reference's ``"model" not in mesh.shape``
+    branch). The mesh branches: ``tests/test_torch_mesh_train.py``."""
+    from repro_torch.distributed import sharding as shd
+
+    class DataOnly:
+        shape = {"data": 2}
+        axis_names = ("data",)
+
     ref_cfg, cfg = _cfg()
     _, p = _params(ref_cfg)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        layers.moe(p, torch.zeros(1, 2, 32), cfg, mesh=object())
+    x = torch.from_numpy(_x(1, 8, 32))
+    with pytest.raises(TypeError, match="mesh"):
+        layers.moe(p, x, cfg, mesh=object())
+    want = layers.moe(p, x, cfg)
+    with shd.use_rules(shd.ShardingRules(batch=("data",)), DataOnly()):
+        got = layers.moe(p, x, cfg)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
