@@ -246,6 +246,31 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               within 1e-3 relative); one f32 step at 1 x 1,024 on the
               mesh and without it, loss and grad norm within 1e-6
               relative. The process group is destroyed at the end.
+  11. mesh_serve  serving on the same one-rank NCCL mesh (phases 10 and 11
+              share main's ``make_host_mesh()``), params laid out in place
+              by ``sharding.distribute_model``, the KV cache by
+              ``init_cache`` inside ``use_rules`` (its sequence over
+              "cache_seq"): granite-8b at full width and depth, bf16,
+              ``serve_loop`` at batch 4, a 16-token prompt and 16 new
+              tokens on the mesh and off it, under decode_32k's rules
+              (``default_rules(cfg, decode=True)``) and long_500k's
+              (``batch=None, cache_seq=("data", "model")``, batch 1): the
+              greedy tokens equal, a difference allowed only where the
+              off-mesh top-2 margin is within one bf16 rounding step (a
+              near tie, reported); the same at 2 layers in f32, every
+              step's logits within 1e-5 relative; a 4,096-token
+              ``Model.prefill`` on and off the mesh (36 kernel D launches
+              each, all on the tensor cores); qwen3-moe-30b-a3b at full
+              width and 2 of 48 layers served the same way under its
+              decode rules (MoE's "ep" branch); then
+              ``distributed.pipeline.pipeline_apply`` over a one-rank "pod"
+              axis, each stage 2 granite-8b blocks at full width in bf16,
+              x [4, 2048, 4096] in 4 microbatches, against
+              ``reference_apply`` (8 kernel D launches in the forward, 7
+              NCCL hand-offs), then one backward with every stage
+              parameter's gradient nonzero. Decode tokens/s, step and
+              first-step seconds, peak memory and the port's collectives
+              a step, on and off the mesh.
 Then the nvidia-smi line, the kernels summary line, and the result line.
 Exits non-zero on any mismatch and when there is no CUDA device.
 """
@@ -3666,79 +3691,400 @@ def mesh_run(model, init: dict, batches: list, tx, mesh, rules) -> dict:
                 nccl_all_to_all=calls[0], placements=sorted(placements))
 
 
-def mesh_phase(dev) -> int:
-    """Phase 10 (see the module docstring); returns kernel D's launches in
-    the mesh steps."""
+def mesh_phase(dev, mesh) -> int:
+    """Phase 10 (see the module docstring) on ``mesh``, main's one-rank
+    NCCL ``make_host_mesh()``; returns kernel D's launches in the mesh
+    steps."""
     import torch.distributed as tdist
 
     from repro_torch.distributed import sharding
-    from repro_torch.launch import mesh as launch_mesh
 
     t0 = time.perf_counter()
-    mesh = launch_mesh.make_host_mesh()
+    backend = tdist.get_backend()
+    if backend != "nccl" or mesh.device_type != "cuda" or mesh.shape != {"data": 1,
+                                                                       "model": 1}:
+        fail(f"mesh: want a 1 x 1 NCCL mesh on the card, got {mesh} over {backend}")
+    full = get_config(MESH_ARCH)
+    rows, total = {}, 0
+    for dtype, b, n, steps in (("bfloat16", MESH_BATCH, MESH_LEN, MESH_STEPS),
+                               ("float32", MESH_F32_BATCH, MESH_F32_LEN, 1)):
+        cfg = dataclasses.replace(full, num_layers=MESH_LAYERS, dtype=dtype)
+        rules = sharding.default_rules(cfg)
+        if rules.moe_mode != "ep":
+            fail(f"mesh: {MESH_ARCH}'s default rules take moe_mode {rules.moe_mode}")
+        model = make_model(cfg, seed=0)
+        init = train.model_params(model)     # the step is pure: both runs start here
+        pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, b, n))
+        batches = [pipe.batch(i) for i in range(steps)]
+        tx = optim.adamw(3e-4, weight_decay=0.1)
+        on = mesh_run(model, init, batches, tx, mesh, rules)
+        off = mesh_run(model, init, batches, tx, None, None)
+        diff = max(float((on["final"][k].float() - off["final"][k].float()).abs().max())
+                   for k in init)
+        rel = {k: [abs(x - y) / max(abs(y), 1e-30) for x, y in zip(on[k], off[k])]
+               for k in ("losses", "grad_norms")}
+        per_step = 2 * sum(k.mixer == "attn" for k in layer_kinds(cfg))   # remat
+        row = dict(arch=MESH_ARCH, dtype=dtype, layers=cfg.num_layers,
+                   full_layers=full.num_layers,
+                   params=sum(v.numel() for v in init.values()), batch=b, tokens=n,
+                   steps=steps, mesh=mesh.shape, backend=backend,
+                   moe_mode=rules.moe_mode, placements=on["placements"],
+                   **{f"{k}_mesh": on[k] for k in ("losses", "grad_norms", "step_s",
+                                                   "peak_bytes", "flash_attention",
+                                                   "flash_attention_sm90",
+                                                   "nccl_all_to_all")},
+                   **{f"{k}_no_mesh": off[k] for k in ("losses", "grad_norms", "step_s",
+                                                       "peak_bytes", "flash_attention")},
+                   rel_diff=rel, max_param_diff=diff)
+        emit("mesh", part=dtype, **row)
+        rows[dtype] = row
+        if not all(np.isfinite(on["losses"] + on["grad_norms"])):
+            fail(f"mesh {dtype}: a loss or grad norm is not finite: {row}")
+        if on["flash_attention"] <= 0 or on["flash_attention"] != off["flash_attention"] \
+                or on["flash_attention"] != per_step * steps:
+            fail(f"mesh {dtype}: kernel D launched {on['flash_attention']} times on the "
+                 f"mesh, {off['flash_attention']} without; want {per_step * steps}")
+        if dtype == "bfloat16" and on["flash_attention_sm90"] != on["flash_attention"]:
+            fail(f"mesh: {on['flash_attention_sm90']} of kernel D's bf16 launches ran "
+                 "on the tensor cores")
+        if on["nccl_all_to_all"] <= 0 or off["nccl_all_to_all"] != 0:
+            fail(f"mesh {dtype}: {on['nccl_all_to_all']} NCCL all_to_all calls on the "
+                 f"mesh, {off['nccl_all_to_all']} without")
+        if max(max(v) for v in rel.values()) > (MESH_RTOL if dtype == "float32"
+                                                 else MESH_BF16_RTOL):
+            fail(f"mesh: the {dtype} steps on the mesh != without it: {rel}")
+        total += on["flash_attention"]
+        del model, init, on, off
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("mesh", part="summary", flash_attention_launches=total,
+         phase_s=time.perf_counter() - t0)
+    return total
+
+
+# --- phase 11: serving on the device mesh, and the pipeline ---------------------
+
+# granite-8b at full width and depth (36 layers, 8.17 B parameters) served
+# as decode_32k and long_500k lower their decode: batch 4 (long: 1), a
+# 16-token prompt, 16 new tokens; the f32 check at 2 layers
+MS_BATCH, MS_LONG_BATCH, MS_PROMPT, MS_GEN = 4, 1, 16, 16
+MS_F32_LAYERS, MS_F32_RTOL = 2, 1e-5
+MS_PREFILL_LEN = 4096
+# the prefill on the mesh runs the same local ops on one rank (kernel D
+# included): a wrong layer or layout moves the logits by O(1), rounding a
+# few bf16 steps at most
+MS_PREFILL_RTOL = 2e-2
+MS_MOE_ARCH, MS_MOE_LAYERS = "qwen3-moe-30b-a3b", 2
+# the pipeline's stage: 2 granite-8b blocks at full width, bf16, x [4,
+# 2048, 4096] in 4 microbatches over a one-rank "pod" axis
+PIPE_BLOCKS, PIPE_BATCH, PIPE_LEN, PIPE_MICRO = 2, 4, 2048, 4
+# the pipeline runs each block on one microbatch at a time, reference_apply
+# on the whole batch (other GEMM shapes): the two agree to a few bf16
+# rounding steps of the output's largest value
+PIPE_TOL = 2.0 ** -6
+
+
+def serve_layouts(cfg) -> dict:
+    """decode_32k's and long_500k's rules (``cells.input_specs``) -> (rules,
+    batch)."""
+    from repro_torch.distributed import sharding
+
+    rules = sharding.default_rules(cfg, decode=True)
+    return {"decode_32k": (rules, MS_BATCH),
+            "long_500k": (dataclasses.replace(rules, batch=None, cache_seq=("data", "model")),
+                          MS_LONG_BATCH)}
+
+
+def port_collectives():
+    """Counts the port's own collective calls (``sharding``'s psum, pmax,
+    all_to_all and ppermute go through these three); DTensor's
+    redistributes are not counted. Returns (counts, restore)."""
+    import torch.distributed as tdist
+
+    counts = {"all_reduce": 0, "all_to_all_single": 0, "batch_isend_irecv": 0}
+    real = {name: getattr(tdist, name) for name in counts}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in counts:
+        setattr(tdist, name, counted(name))
+    return counts, lambda: [setattr(tdist, n, f) for n, f in real.items()]
+
+
+def recorded_serve(model, prompts, keep_logits: bool, mesh=None, rules=None) -> dict:
+    """``serve.serve_loop`` (inside ``use_rules(rules, mesh)`` when ``mesh``
+    is given), with every step's logits recorded: whole in f32 where
+    ``keep_logits``, else the top two of each row. Returns the tokens,
+    the loop's seconds, the first step's seconds, peak memory and the port's
+    collectives a step."""
+    from repro_torch.distributed import sharding
+
+    rec, first = [], []
+    real = model.decode_step
+
+    def step(token, cache, extras=None):
+        t0 = time.perf_counter()
+        logits, cache = real(token, cache, extras)
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.perf_counter() - t0)
+        whole = (logits.full_tensor() if isinstance(logits, sharding.DTensor)
+                 else logits).float()
+        rec.append(whole if keep_logits else torch.topk(whole, 2, dim=-1).values)
+        return logits, cache
+
+    scope = sharding.use_rules(rules, mesh) if mesh is not None else contextlib.nullcontext()
+    torch.cuda.reset_peak_memory_stats()
+    model.decode_step = step
+    counts, restore = port_collectives()
     try:
-        backend = tdist.get_backend()
-        if backend != "nccl" or mesh.device_type != "cuda" or mesh.shape != {"data": 1,
-                                                                           "model": 1}:
-            fail(f"mesh: want a 1 x 1 NCCL mesh on the card, got {mesh} over {backend}")
-        full = get_config(MESH_ARCH)
-        rows, total = {}, 0
-        for dtype, b, n, steps in (("bfloat16", MESH_BATCH, MESH_LEN, MESH_STEPS),
-                                   ("float32", MESH_F32_BATCH, MESH_F32_LEN, 1)):
-            cfg = dataclasses.replace(full, num_layers=MESH_LAYERS, dtype=dtype)
-            rules = sharding.default_rules(cfg)
-            if rules.moe_mode != "ep":
-                fail(f"mesh: {MESH_ARCH}'s default rules take moe_mode {rules.moe_mode}")
-            model = make_model(cfg, seed=0)
-            init = train.model_params(model)     # the step is pure: both runs start here
-            pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, b, n))
-            batches = [pipe.batch(i) for i in range(steps)]
-            tx = optim.adamw(3e-4, weight_decay=0.1)
-            on = mesh_run(model, init, batches, tx, mesh, rules)
-            off = mesh_run(model, init, batches, tx, None, None)
-            diff = max(float((on["final"][k].float() - off["final"][k].float()).abs().max())
-                       for k in init)
-            rel = {k: [abs(x - y) / max(abs(y), 1e-30) for x, y in zip(on[k], off[k])]
-                   for k in ("losses", "grad_norms")}
-            per_step = 2 * sum(k.mixer == "attn" for k in layer_kinds(cfg))   # remat
-            row = dict(arch=MESH_ARCH, dtype=dtype, layers=cfg.num_layers,
-                       full_layers=full.num_layers,
-                       params=sum(v.numel() for v in init.values()), batch=b, tokens=n,
-                       steps=steps, mesh=mesh.shape, backend=backend,
-                       moe_mode=rules.moe_mode, placements=on["placements"],
-                       **{f"{k}_mesh": on[k] for k in ("losses", "grad_norms", "step_s",
-                                                       "peak_bytes", "flash_attention",
-                                                       "flash_attention_sm90",
-                                                       "nccl_all_to_all")},
-                       **{f"{k}_no_mesh": off[k] for k in ("losses", "grad_norms", "step_s",
-                                                           "peak_bytes", "flash_attention")},
-                       rel_diff=rel, max_param_diff=diff)
-            emit("mesh", part=dtype, **row)
-            rows[dtype] = row
-            if not all(np.isfinite(on["losses"] + on["grad_norms"])):
-                fail(f"mesh {dtype}: a loss or grad norm is not finite: {row}")
-            if on["flash_attention"] <= 0 or on["flash_attention"] != off["flash_attention"] \
-                    or on["flash_attention"] != per_step * steps:
-                fail(f"mesh {dtype}: kernel D launched {on['flash_attention']} times on the "
-                     f"mesh, {off['flash_attention']} without; want {per_step * steps}")
-            if dtype == "bfloat16" and on["flash_attention_sm90"] != on["flash_attention"]:
-                fail(f"mesh: {on['flash_attention_sm90']} of kernel D's bf16 launches ran "
-                     "on the tensor cores")
-            if on["nccl_all_to_all"] <= 0 or off["nccl_all_to_all"] != 0:
-                fail(f"mesh {dtype}: {on['nccl_all_to_all']} NCCL all_to_all calls on the "
-                     f"mesh, {off['nccl_all_to_all']} without")
-            if max(max(v) for v in rel.values()) > (MESH_RTOL if dtype == "float32"
-                                                     else MESH_BF16_RTOL):
-                fail(f"mesh: the {dtype} steps on the mesh != without it: {rel}")
-            total += on["flash_attention"]
-            del model, init, on, off
-            gc.collect()
-            torch.cuda.empty_cache()
-        emit("mesh", part="summary", flash_attention_launches=total,
-             phase_s=time.perf_counter() - t0)
-        return total
+        with scope:
+            out, prefill_s, decode_s = serve.serve_loop(model, prompts, MS_GEN)
     finally:
-        tdist.destroy_process_group()
+        restore()
+        del model.decode_step
+    steps = MS_PROMPT + MS_GEN
+    return dict(tokens=out, logits=torch.stack(rec), prefill_s=prefill_s, decode_s=decode_s,
+                first_step_s=first[0], step_s=decode_s / MS_GEN,
+                decode_tokens_per_s=out.shape[0] * MS_GEN / decode_s,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                collectives_per_step={k: v / steps for k, v in counts.items()})
+
+
+def bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 rounding step (the spacing of bf16 values) at |x|."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def near_tie_check(what: str, on: dict, off: dict) -> list:
+    """The greedy tokens on and off the mesh, row by row, up to the first
+    that differs. A difference where the off-mesh top-2 margin is within
+    one bf16 rounding step is a near tie: reported, and the rest of that
+    row (fed another token) is not compared; any other fails."""
+    ties = []
+    top2 = off["logits"][MS_PROMPT - 1:-1]                  # the logits each token came from
+    for b in range(on["tokens"].shape[0]):
+        for j in range(MS_GEN):
+            if on["tokens"][b, j] == off["tokens"][b, j]:
+                continue
+            hi, lo = float(top2[j, b, 0]), float(top2[j, b, 1])
+            margin, stepsize = hi - lo, float(bf16_step(torch.tensor(hi)))
+            if margin > stepsize:
+                fail(f"mesh_serve {what}: row {b} token {j} is {on['tokens'][b, j]} on the "
+                     f"mesh, {off['tokens'][b, j]} off it, at a top-2 margin of {margin} "
+                     f"(one bf16 step {stepsize})")
+            ties.append(dict(row=b, token=j, margin=margin, bf16_step=stepsize))
+            break
+    return ties
+
+
+def prefill_launches(model, tokens, mesh=None, rules=None) -> tuple[torch.Tensor, dict]:
+    """``Model.prefill`` (on the mesh when ``mesh`` is given) -> (last
+    logits, gathered, f32; kernel D's launches by route and the seconds)."""
+    from repro_torch.distributed import sharding
+
+    scope = sharding.use_rules(rules, mesh) if mesh is not None else contextlib.nullcontext()
+    ops.reset_launches()
+    with scope:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    logits = logits.full_tensor() if isinstance(logits, sharding.DTensor) else logits
+    return logits.float(), dict(seconds=wall, flash_attention=ops.LAUNCHES["flash_attention"],
+                                flash_attention_sm90=ops.LAUNCHES["flash_attention_sm90"])
+
+
+def mesh_serve_granite(dev, mesh, gen) -> int:
+    """(a): granite-8b served on and off the mesh under both layouts,
+    bf16 at full depth and f32 at 2 layers, and the 4,096-token prefill;
+    returns kernel D's launches."""
+    from repro_torch.distributed import sharding
+
+    launches = 0
+    for dtype, layers in (("bfloat16", LM.num_layers), ("float32", MS_F32_LAYERS)):
+        cfg = dataclasses.replace(LM, num_layers=layers, dtype=dtype)
+        layouts = serve_layouts(cfg)
+        model = make_model(cfg, seed=0)
+        prompts = torch.randint(0, cfg.vocab_size, (MS_BATCH, MS_PROMPT), device=dev,
+                                generator=gen)
+        f32 = dtype == "float32"
+        off = {name: recorded_serve(model, prompts[:b], f32) for name, (_, b) in layouts.items()}
+        if not f32:
+            tokens = torch.randint(0, cfg.vocab_size, (1, MS_PREFILL_LEN), device=dev,
+                                   generator=gen)
+            pre_off, pre_off_row = prefill_launches(model, tokens)
+        sharding.distribute_model(model, mesh, layouts["decode_32k"][0])
+        for name, (rules, b) in layouts.items():
+            on = recorded_serve(model, prompts[:b], f32, mesh, rules)
+            row = dict(arch=cfg.name, dtype=dtype, layers=layers, layout=name, batch=b,
+                       prompt=MS_PROMPT, gen=MS_GEN, cache_seq=rules.cache_seq,
+                       rules_batch=rules.batch,
+                       **{f"{k}_mesh": on[k] for k in ("prefill_s", "decode_s", "step_s",
+                                                       "first_step_s", "decode_tokens_per_s",
+                                                       "peak_bytes", "collectives_per_step")},
+                       **{f"{k}_no_mesh": off[name][k] for k in (
+                           "prefill_s", "decode_s", "step_s", "first_step_s",
+                           "decode_tokens_per_s", "peak_bytes", "collectives_per_step")})
+            if f32:
+                want, got = off[name]["logits"], on["logits"]
+                rel = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+                row.update(max_rel_logit_diff=max(rel), tol=MS_F32_RTOL,
+                           tokens_equal=bool(np.array_equal(on["tokens"], off[name]["tokens"])))
+                emit("mesh_serve", part="granite", **row)
+                if not all(torch.isfinite(got).all() for got in on["logits"]) \
+                        or max(rel) > MS_F32_RTOL:
+                    fail(f"mesh_serve {name} f32: the logits on the mesh differ from "
+                         f"those off it by {max(rel)} relative (tol {MS_F32_RTOL})")
+            else:
+                ties = near_tie_check(f"granite {name}", on, off[name])
+                row.update(near_ties=ties, tokens_equal=bool(np.array_equal(
+                    on["tokens"], off[name]["tokens"])), first_tokens=on["tokens"][:, :8].tolist())
+                emit("mesh_serve", part="granite", **row)
+            if on["collectives_per_step"]["all_reduce"] <= 0 \
+                    or sum(off[name]["collectives_per_step"].values()) != 0:
+                fail(f"mesh_serve {name}: port collectives a step {on['collectives_per_step']} "
+                     f"on the mesh, {off[name]['collectives_per_step']} off it")
+        if not f32:
+            pre_on, pre_on_row = prefill_launches(model, tokens, mesh, layouts["decode_32k"][0])
+            err = float((pre_on - pre_off).abs().max())
+            emit("mesh_serve", part="granite_prefill", tokens=MS_PREFILL_LEN,
+                 mesh=pre_on_row, no_mesh=pre_off_row, max_abs_diff=err,
+                 logits_abs_max=float(pre_off.abs().max()))
+            want = dict(flash_attention=cfg.num_layers, flash_attention_sm90=cfg.num_layers)
+            if {k: pre_on_row[k] for k in want} != want \
+                    or {k: pre_off_row[k] for k in want} != want:
+                fail(f"mesh_serve prefill: kernel D {pre_on_row} on the mesh, {pre_off_row} "
+                     f"off it; want {cfg.num_layers} each, all on the tensor cores")
+            if not bool(torch.isfinite(pre_on).all()) \
+                    or err > MS_PREFILL_RTOL * float(pre_off.abs().max()):
+                fail(f"mesh_serve prefill: the last logits differ by {err} on the mesh")
+            launches += pre_on_row["flash_attention"] + pre_off_row["flash_attention"]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_serve_moe(dev, mesh, gen) -> None:
+    """(b): qwen3-moe-30b-a3b at full width, 2 layers, served on and off the
+    mesh under its default decode rules (MoE's "ep" branch)."""
+    from repro_torch.distributed import sharding
+
+    cfg = dataclasses.replace(get_config(MS_MOE_ARCH), num_layers=MS_MOE_LAYERS)
+    rules = sharding.default_rules(cfg, decode=True)
+    if rules.moe_mode != "ep":
+        fail(f"mesh_serve: {MS_MOE_ARCH}'s decode rules take moe_mode {rules.moe_mode}")
+    model = make_model(cfg, seed=0)
+    prompts = torch.randint(0, cfg.vocab_size, (MS_BATCH, MS_PROMPT), device=dev, generator=gen)
+    off = recorded_serve(model, prompts, False)
+    sharding.distribute_model(model, mesh, rules)
+    on = recorded_serve(model, prompts, False, mesh, rules)
+    ties = near_tie_check("qwen3-moe", on, off)
+    emit("mesh_serve", part="moe", arch=cfg.name, layers=cfg.num_layers, moe_mode=rules.moe_mode,
+         batch=MS_BATCH, prompt=MS_PROMPT, gen=MS_GEN, near_ties=ties,
+         tokens_equal=bool(np.array_equal(on["tokens"], off["tokens"])),
+         **{f"{k}_mesh": on[k] for k in ("decode_s", "step_s", "first_step_s",
+                                         "decode_tokens_per_s", "peak_bytes",
+                                         "collectives_per_step")},
+         **{f"{k}_no_mesh": off[k] for k in ("decode_s", "step_s", "decode_tokens_per_s",
+                                             "peak_bytes")})
+    if on["collectives_per_step"]["all_to_all_single"] <= 0:
+        fail(f"mesh_serve moe: no all_to_all on the mesh ({on['collectives_per_step']})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_serve_pipeline(dev, gen) -> int:
+    """(c): ``pipeline_apply`` over a one-rank "pod" axis, each stage 2
+    granite-8b blocks, against ``reference_apply``, then one backward;
+    returns kernel D's launches."""
+    from torch.func import functional_call
+
+    from repro_torch.distributed import pipeline
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models.transformer import Block, SublayerKind
+
+    pod = launch_mesh.make_mesh((1,), ("pod",))
+    kind = SublayerKind("attn", False, False, True)
+    blocks = torch.nn.ModuleList(Block(LM, kind, gen, dev) for _ in range(PIPE_BLOCKS))
+    params = {k: v.detach()[None].clone().requires_grad_(True)
+              for k, v in blocks.named_parameters()}
+    del blocks
+    stage_blocks = torch.nn.ModuleList(Block(LM, kind, None, "meta") for _ in range(PIPE_BLOCKS))
+
+    def stage(p, x):
+        for i, blk in enumerate(stage_blocks):
+            x, _ = functional_call(blk, {k.split(".", 1)[1]: v for k, v in p.items()
+                                         if k.split(".", 1)[0] == str(i)}, (x,))
+        return x
+
+    x = torch.randn(PIPE_BATCH, PIPE_LEN, LM.d_model, device=dev, generator=gen,
+                    dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = pipeline.reference_apply(stage, params, x)
+    ops.reset_launches()
+    counts, restore = port_collectives()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pipeline.pipeline_apply(stage, params, x, mesh=pod, axis="pod",
+                                    num_microbatches=PIPE_MICRO)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches = dict(flash_attention=ops.LAUNCHES["flash_attention"],
+                        flash_attention_sm90=ops.LAUNCHES["flash_attention_sm90"])
+        t0 = time.perf_counter()
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        bwd_s = time.perf_counter() - t0
+    finally:
+        restore()
+    diff = float((y.detach().float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    zero = [k for k, v in params.items() if v.grad is None or not bool(v.grad.abs().max() > 0)]
+    emit("mesh_serve", part="pipeline", stages=1, blocks=PIPE_BLOCKS, batch=PIPE_BATCH,
+         tokens=PIPE_LEN, microbatches=PIPE_MICRO, dtype="bfloat16",
+         bit_equal=bool(torch.equal(y.detach(), want)), max_abs_diff=diff, out_abs_max=scale,
+         tol=PIPE_TOL * scale, forward_s=fwd_s, backward_s=bwd_s, launches=launches,
+         collectives=counts, params=len(params), zero_grads=zero,
+         peak_bytes=torch.cuda.max_memory_allocated())
+    want_d = PIPE_BLOCKS * PIPE_MICRO
+    if launches != dict(flash_attention=want_d, flash_attention_sm90=want_d):
+        fail(f"mesh_serve pipeline: kernel D {launches}; want {want_d}, all on the tensor cores")
+    # M + S - 1 ticks (S 1) hand off forward, and all but the last backward
+    ticks = PIPE_MICRO
+    if counts["batch_isend_irecv"] != 2 * ticks - 1:
+        fail(f"mesh_serve pipeline: {counts['batch_isend_irecv']} hand-offs through NCCL, "
+             f"want {2 * ticks - 1}")
+    if not bool(torch.isfinite(y).all()) or diff > PIPE_TOL * scale:
+        fail(f"mesh_serve pipeline: {diff} from reference_apply (tol {PIPE_TOL * scale})")
+    if zero:
+        fail(f"mesh_serve pipeline: zero or missing gradients for {zero}")
+    del params, y, want, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def mesh_serve_phase(dev, mesh) -> int:
+    """Phase 11 (see the module docstring) on ``mesh``, main's one-rank
+    NCCL ``make_host_mesh()``; returns kernel D's launches."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    launches = mesh_serve_granite(dev, mesh, gen)
+    mesh_serve_moe(dev, mesh, gen)
+    launches += mesh_serve_pipeline(dev, gen)
+    emit("mesh_serve", part="summary", flash_attention_launches=launches,
+         phase_s=time.perf_counter() - t0)
+    return launches
 
 
 def main() -> int:
@@ -3822,8 +4168,16 @@ def main() -> int:
     launches["flash_attention"] += train_launches
     for k, v in launch_phase(dev).items():
         launches[k] += v
-    mesh_launches = mesh_phase(dev)
-    launches["flash_attention"] += mesh_launches
+    import torch.distributed as tdist
+
+    from repro_torch.launch import mesh as launch_mesh
+    mesh = launch_mesh.make_host_mesh()
+    try:
+        mesh_launches = mesh_phase(dev, mesh)
+        mesh_serve_launches = mesh_serve_phase(dev, mesh)
+    finally:
+        tdist.destroy_process_group()
+    launches["flash_attention"] += mesh_launches + mesh_serve_launches
 
     sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed, "sim_topk": sim_topk,
                "flash_attention": flash_attn}
@@ -3836,6 +4190,7 @@ def main() -> int:
     rows[0]["gear_packed_launches"] = launches["gear_packed"]
     rows[3]["train_row"] = train_row
     rows[3]["mesh_launches"] = mesh_launches
+    rows[3]["mesh_serve_launches"] = mesh_serve_launches
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Distributed training (port of ``repro.distributed``): the logical-axis
-sharding rules of a device mesh (``sharding``) and int8 gradient
+sharding rules of a device mesh (``sharding``), GPipe pipeline
+parallelism over a mesh axis (``pipeline``) and int8 gradient
 compression with error feedback (``compress``). The reference's
 ``hlo_cost`` and ``roofline`` parse XLA HLO and have no counterpart."""
 from repro_torch.distributed.sharding import (  # noqa: F401

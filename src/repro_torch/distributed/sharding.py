@@ -15,17 +15,19 @@ torch's DTensor here:
   otherwise;
 - ``shard_map`` runs a function on the local shards
   (``torch.distributed.tensor.experimental.local_map``); inside it,
-  ``all_to_all``, ``psum``, ``pmean`` and ``axis_index`` act on a named
-  mesh axis. Its gradients are the transpose ``jax.grad`` takes through
-  the reference's ``shard_map(check_vma=False)``: an output's cotangent
-  is divided by the size of the mesh axes its spec leaves out, an
-  input's gradient is summed over the axes its spec leaves out, ``psum``
-  transposes to ``psum`` and ``all_to_all`` to the inverse
-  ``all_to_all``.
+  ``all_to_all``, ``psum``, ``pmean``, ``pmax``, ``ppermute`` and
+  ``axis_index`` act on a named mesh axis. Its gradients are the
+  transpose ``jax.grad`` takes through the reference's
+  ``shard_map(check_vma=False)``: an output's cotangent is divided by the
+  size of the mesh axes its spec leaves out, an input's gradient is
+  summed over the axes its spec leaves out, ``psum`` transposes to
+  ``psum``, ``all_to_all`` to the inverse ``all_to_all`` and ``ppermute``
+  to the inverse permutation (``pmax`` takes no gradient).
 
 DTensor accepts uneven shards where ``pjit`` needs exact division;
-``distribute_params`` still lays params out by ``sanitize_pspecs``, so the
-port's layouts are the reference's.
+``distribute_params`` (a param dict), ``distribute_model`` (a model's own
+params, in place) and ``distribute_cache`` (a KV cache) still lay tensors
+out by ``sanitize_pspecs``, so the port's layouts are the reference's.
 """
 from __future__ import annotations
 
@@ -195,11 +197,16 @@ def placements(spec: P, mesh) -> tuple:
 def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """``with_sharding_constraint`` by logical names: a DTensor is
     redistributed to the spec's placements inside ``use_rules(rules,
-    mesh)``; anything else, or outside, comes back as it is."""
+    mesh)`` (a dim of size 1 kept whole); anything else, or outside, comes
+    back as it is."""
     rules, mesh = _ACTIVE.get(), _ACTIVE_MESH.get()
     if rules is None or mesh is None or not isinstance(x, DTensor):
         return x
-    want = placements(activation_spec(*logical, rules=rules), mesh)
+    # a dim of one element stays whole (its value is the same either way):
+    # DTensor refuses to view a tensor whose one-element dim is sharded,
+    # even over a one-rank axis (torch 2.13)
+    spec = activation_spec(*logical, rules=rules)
+    want = placements(P(*(None if n == 1 else e for e, n in zip(spec, x.shape))), mesh)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh.device_mesh, want)
@@ -389,6 +396,50 @@ def distribute_params(params: dict, mesh, rules: ShardingRules) -> dict:
             for k, v in params.items()}
 
 
+def distribute_model(model: torch.nn.Module, mesh, rules: ShardingRules) -> torch.nn.Module:
+    """Lay ``model``'s own parameters out in place on ``mesh``, each a
+    DTensor by ``sanitize_pspecs(param_pspecs(...))`` as
+    ``distribute_params`` lays out a param dict (the reference's
+    ``in_shardings`` of ``lower_cell``, ``cells.py:141-149``), so that
+    ``prefill`` / ``decode_step`` run on the mesh. Returns ``model``."""
+    laid = distribute_params(dict(model.named_parameters()), mesh, rules)
+    for name, value in laid.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        setattr(mod, leaf, torch.nn.Parameter(value, requires_grad=False))
+    return model
+
+
+def distribute_cache(cache: Any, mesh, rules: ShardingRules) -> Any:
+    """A KV / SSM cache tree of (``meta``) tensors -> DTensors of zeros with
+    the same shapes and dtypes, laid out by ``sanitize_pspecs(cache_pspecs(
+    ...))`` on ``mesh`` (``cells.input_specs`` / ``lower_cell``'s cache
+    shardings); each rank allocates its own shards alone. Leaves that are
+    not tensors come back as they are."""
+    from torch.distributed.tensor import zeros
+
+    specs = sanitize_pspecs(cache, cache_pspecs(cache, rules), mesh)
+
+    def make(_, leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return zeros(tuple(leaf.shape), dtype=leaf.dtype, device_mesh=mesh.device_mesh,
+                     placements=placements(spec, mesh))
+    return _map_named(make, cache, specs)
+
+
+def spec_of(x: torch.Tensor, mesh) -> P:
+    """The spec a DTensor is laid out by on ``mesh`` (each mesh axis on
+    the tensor dim it shards; a partial or a plain tensor reads as
+    replicated)."""
+    entries = [[] for _ in range(x.dim())]
+    if isinstance(x, DTensor):
+        for ax, p in zip(mesh.axis_names, x.placements):
+            if isinstance(p, Shard):
+                entries[p.dim % x.dim()].append(ax)
+    return P(*(None if not e else (e[0] if len(e) == 1 else tuple(e)) for e in entries))
+
+
 # ---------------------------------------------------------------------------
 # shard_map and the named-axis collectives of its local functions
 # ---------------------------------------------------------------------------
@@ -432,6 +483,17 @@ def pmean(x: torch.Tensor, axis) -> torch.Tensor:
     axes = _axes_of(axis)
     n = math.prod(_local_mesh().shape[a] for a in axes)
     return psum(x, axes) / n
+
+
+def pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    """``jax.lax.pmax``: the elementwise max over the named mesh axis (or
+    axes) of the running shard_map. No gradient (the softmax combine of
+    the mesh decode uses it under ``no_grad``)."""
+    mesh = _local_mesh()
+    out = x.detach().contiguous().clone()
+    for ax in _axes_of(axis):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.get_group(ax))
+    return out
 
 
 def axis_index(axis: str) -> int:
@@ -479,6 +541,56 @@ def all_to_all(x: torch.Tensor, axis: str, split_axis: int, concat_axis: int,
     split_axis %= x.dim()
     concat_axis %= x.dim()
     return _AllToAll.apply(x, _local_mesh(), axis, split_axis, concat_axis)
+
+
+def _ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """Each rank's ``x`` to its ``perm`` partner along ``axis`` (group
+    ranks), as one ``batch_isend_irecv`` over the axis' group; a rank that
+    no pair sends to gets zeros, as in JAX."""
+    group = mesh.get_group(axis)
+    me = mesh.local_rank(axis)
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in perm:
+        if src == dst == me and dist.get_backend(group) == "gloo":
+            # gloo has no pair to its own rank (the send raises); NCCL takes
+            # the send to self inside the batch, so on the card a one-rank
+            # axis still goes through the group
+            out.copy_(x)
+            continue
+        if src == me:
+            ops.append(dist.P2POp(dist.isend, x, dist.get_global_rank(group, dst), group))
+        if dst == me:
+            ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    """The mesh and the pairs ride on ``ctx``: the backward of a CUDA
+    tensor runs on the autograd engine's own thread, where the shard_map
+    context (``_LOCAL_MESH``) is unset."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.args = (mesh, axis, tuple((d, s) for s, d in perm))
+        return _ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, *ctx.args), None, None, None
+
+
+def ppermute(x: torch.Tensor, axis: str, perm) -> torch.Tensor:
+    """``jax.lax.ppermute`` over a named mesh axis of the running
+    shard_map: ``perm`` is a list of (source, destination) indices along
+    ``axis``; a rank no pair sends to receives zeros. Its gradient is the
+    inverse permutation."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    return _PPermute.apply(x, _local_mesh(), axis, perm)
 
 
 class _ScaleGrad(torch.autograd.Function):

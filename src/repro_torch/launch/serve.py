@@ -27,6 +27,7 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get_config
 from repro_torch.models import make_model
@@ -37,11 +38,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _whole(logits: torch.Tensor) -> torch.Tensor:
+    """The step's logits as a plain tensor, gathered whole on every rank:
+    on a mesh they come out a DTensor split over the vocabulary
+    (``constrain(..., "vocab")``) and the batch, and each rank needs every
+    row's next token."""
+    return logits.full_tensor() if isinstance(logits, DTensor) else logits
+
+
 def serve_loop(model, prompts: torch.Tensor, gen_len: int, temperature: float = 0.0,
                generator: torch.Generator | None = None, extras: dict | None = None
                ) -> tuple[np.ndarray, float, float]:
     """prompts [B, P] -> (generated tokens [B, gen_len] int64, prefill
-    seconds, decode seconds). ``extras`` goes to every ``decode_step``."""
+    seconds, decode seconds). ``extras`` goes to every ``decode_step``.
+    Inside ``sharding.use_rules(rules, mesh)``, with the model's params laid
+    out by ``sharding.distribute_model``, it serves on the mesh: the cache
+    is laid out by the rules and every rank gets the same tokens."""
     b, plen = prompts.shape
     dev = model.device
     prompts = prompts.to(dev)
@@ -55,11 +67,12 @@ def serve_loop(model, prompts: torch.Tensor, gen_len: int, temperature: float = 
     prefill_s = time.perf_counter() - t0
 
     toks = []
-    tok = torch.argmax(logits, dim=-1)[:, None]
+    tok = torch.argmax(_whole(logits), dim=-1)[:, None]
     t0 = time.perf_counter()
     for _ in range(gen_len):
         toks.append(tok[:, 0].cpu().numpy())
         logits, cache = model.decode_step(tok, cache, extras)
+        logits = _whole(logits)
         if temperature > 0 and generator is not None:
             probs = torch.softmax(logits.float() / temperature, dim=-1)
             tok = torch.multinomial(probs, 1, generator=generator)

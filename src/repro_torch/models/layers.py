@@ -37,8 +37,10 @@ activations with the reference's ``constrain`` calls. Attention runs
 kernel D inside ``shard_map`` on each rank's batch rows and q heads, with
 the kv heads those q heads use; ``moe`` takes the reference's ``"ep"``
 (experts over "model", one ``all_to_all`` pair) or ``"tp"`` (expert FFNs
-split over "model", a ``psum``) branch. The KV-cache decode path does not
-run on a mesh.
+split over "model", a ``psum``) branch. A decode step attends over a KV
+cache laid out on the mesh (its sequence split over "cache_seq" where the
+rules say so), its softmax combined across the ranks
+(``_decode_attention_on_mesh``).
 """
 from __future__ import annotations
 
@@ -134,10 +136,20 @@ def project(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     return y.view(*lead, *tail)
 
 
-def _dense_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+def _dense_attention(q, k, v, *, causal: bool, q_offset: int = 0, k_offset: int = 0,
+                     seq_axes=None) -> torch.Tensor:
     """q [B, Tq, H, hd], k/v [B, Tk, KV, hd], scores materialised (the
     decode path). As the reference: q scaled in its own dtype, f32 scores
-    and softmax, probabilities in q's dtype, f32 accumulation."""
+    and softmax, probabilities in q's dtype, f32 accumulation.
+
+    Inside ``shard_map`` with ``seq_axes`` (a mesh axis or a tuple of
+    them), k and v are this rank's block of a key sequence split over
+    those axes, its first key at global position ``k_offset``: the
+    softmax's max and sum and the mixed values are combined over the axes
+    (``pmax``, then ``psum``). The global max is taken before the exp, so
+    a rank whose keys all lie past the query (masked) adds zeros; the
+    probabilities are divided by the global sum and rounded to q's dtype
+    before the mix, as the single-device softmax rounds them."""
     b, tq, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -145,10 +157,16 @@ def _dense_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tenso
     s = torch.einsum("bqkgd,bjkd->bkgqj", qg.float(), k.float())
     if causal:
         qpos = q_offset + torch.arange(tq, device=q.device)[:, None]
-        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        kpos = k_offset + torch.arange(k.shape[1], device=q.device)[None, :]
         s = s.masked_fill(kpos > qpos, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
+    if seq_axes:
+        e = torch.exp(s - shd.pmax(s.amax(dim=-1, keepdim=True), seq_axes))
+        p = (e / shd.psum(e.sum(dim=-1, keepdim=True), seq_axes)).to(q.dtype)
+    else:
+        p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqj,bjkd->bqkgd", p.float(), v.float())
+    if seq_axes:
+        out = shd.psum(out, seq_axes)
     return out.reshape(b, tq, h, hd).to(q.dtype)
 
 
@@ -183,9 +201,12 @@ class Attention(nn.Module):
         k = shd.constrain(k, "batch", "seq", "kv_heads", None)
         if isinstance(q, DTensor):
             if kv_cache is not None:
-                raise NotImplementedError("decode with a KV cache does not run on a mesh")
-            out = _attention_on_mesh(q, k, v, cfg, causal=causal and memory is None,
-                                     rotate=memory is None)
+                if pos is None:
+                    raise ValueError("a KV cache needs pos")
+                out = _decode_attention_on_mesh(q, k, v, kv_cache, pos, cfg)
+            else:
+                out = _attention_on_mesh(q, k, v, cfg, causal=causal and memory is None,
+                                         rotate=memory is None)
             out = shd.constrain(out, "batch", "seq", "heads", None)
             return shd.constrain(project(out, self.wo, 2), "batch", "seq", "d_model")
         if memory is None:
@@ -257,6 +278,54 @@ def _attention_on_mesh(q, k, v, cfg, *, causal: bool, rotate: bool):
 
     return shd.shard_map(local, mesh=mesh, in_specs=(q_spec, kv_spec, kv_spec),
                          out_specs=q_spec)(q, k, v)
+
+
+def _decode_attention_on_mesh(q, k, v, kv_cache: dict, pos: int, cfg):
+    """A decode step's attention over a KV cache laid out on the mesh, in
+    ``shard_map``: what the reference's GSPMD computes from ``constrain(k,
+    "batch", "cache_seq", "kv_heads", None)`` and ``_dense_attention(...,
+    causal=True, q_offset=pos)`` (``layers.py:199-209``).
+
+    The cache keeps the layout it has (``init_cache``'s: ``cache_pspecs``
+    through ``sanitize_pspecs``, the cache's ("batch", "cache_seq",
+    "kv_heads") entries where they divide). q and the step's new K / V
+    rows follow its batch and kv-head entries and are whole along the rest
+    (at Tq 1 a few KB). Each rank rotates them at ``pos``, writes the rows
+    into its own cache block in place where that block holds ``pos``, and
+    attends over its keys at their global positions; over a sequence split
+    the softmax is combined across the ranks (``_dense_attention``'s
+    ``seq_axes``). DTensor's own indexed write would gather a sharded
+    sequence dim or raise."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = shd.current_mesh()
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    c_spec = shd.spec_of(ck, mesh)
+    if c_spec[3] is not None or shd.spec_of(cv, mesh) != c_spec:
+        raise NotImplementedError(f"a KV cache laid out as {c_spec} / {shd.spec_of(cv, mesh)}")
+    # q heads split as the kv heads: a block of kv heads serves the block of
+    # q heads of the same index (q head j -> kv head j // group)
+    q_spec = shd.P(c_spec[0], None, c_spec[2], None)
+    if isinstance(ck, DTensor):
+        _, (_, k_off, _, _) = compute_local_shape_and_global_offset(
+            ck.shape, mesh.device_mesh, ck.placements)
+    else:
+        k_off = 0
+
+    def local(ql, kl, vl, ckl, cvl):
+        positions = torch.full((ql.shape[0], ql.shape[1]), pos, device=ql.device)
+        ql = apply_rope(ql, positions, cfg.rope_fraction, cfg.rope_theta)
+        kl = apply_rope(kl, positions, cfg.rope_fraction, cfg.rope_theta)
+        t, n = ql.shape[1], ckl.shape[1]
+        lo, hi = max(pos, k_off), min(pos + t, k_off + n)
+        if lo < hi:
+            ckl[:, lo - k_off:hi - k_off] = kl[:, lo - pos:hi - pos].to(ckl.dtype)
+            cvl[:, lo - k_off:hi - k_off] = vl[:, lo - pos:hi - pos].to(cvl.dtype)
+        return _dense_attention(ql, ckl, cvl, causal=True, q_offset=pos, k_offset=k_off,
+                                seq_axes=c_spec[1])
+
+    return shd.shard_map(local, mesh=mesh, in_specs=(q_spec, q_spec, q_spec, c_spec, c_spec),
+                         out_specs=q_spec)(q, k, v, ck, cv)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

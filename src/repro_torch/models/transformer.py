@@ -329,13 +329,23 @@ class Model(nn.Module):
         KV, hd]}}`` in the model dtype for attention, ``{"ssm": {"conv":
         [B, W-1, conv_ch] in the model dtype, "h": [B, H, N, P] f32}}`` for
         SSM; ``pos`` 0. Nothing for the cross sublayers: their K / V are
-        the memory's, recomputed at every step."""
+        the memory's, recomputed at every step. Inside ``use_rules(rules,
+        mesh)`` each leaf is a DTensor of zeros laid out by
+        ``cache_pspecs`` and then ``sanitize_pspecs`` (the reference's
+        ``cells.input_specs`` / ``lower_cell``, ``cells.py:123-125``,
+        ``:145-149``): each rank allocates its own block alone. A
+        ``max_len`` the axes do not divide leaves the sequence whole."""
         cfg, dt = self.cfg, L.dtype_of(self.cfg)
         shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        mk = lambda: torch.zeros(shape, dtype=dt, device=self.device)
+        mesh, rules = shd.current_mesh(), shd.current_rules()
+        on_mesh = mesh is not None and rules is not None
+        dev = "meta" if on_mesh else self.device
+        mk = lambda: torch.zeros(shape, dtype=dt, device=dev)
         layers = [{"kv": {"k": mk(), "v": mk()}} if kind.mixer == "attn" else
-                  {"ssm": S.init_ssm_cache(cfg, batch, dt, self.device)}
+                  {"ssm": S.init_ssm_cache(cfg, batch, dt, dev)}
                   for kind in self.kinds]
+        if on_mesh:
+            layers = shd.distribute_cache(layers, mesh, rules)
         return {"layers": layers, "pos": 0}
 
     @torch.no_grad()
@@ -344,7 +354,11 @@ class Model(nn.Module):
         """token [B, 1] -> (logits [B, V], cache). Writes the step's K/V into
         the cache tensors in place, puts each SSM layer's new state in its
         entry, and returns the cache with ``pos`` + 1. With ``frames`` the
-        encoder runs again, as in the reference; pass ``memory`` to spare it."""
+        encoder runs again, as in the reference; pass ``memory`` to spare it.
+        Inside ``use_rules(rules, mesh)`` (params laid out by
+        ``sharding.distribute_model``, the cache by ``init_cache`` there)
+        each rank writes into its own cache block and the logits come out
+        a DTensor split over the vocabulary (dense and MoE families)."""
         x, _ = self._hidden(token, extras, cache)
         return self._logits(x)[:, 0], {"layers": cache["layers"], "pos": cache["pos"] + 1}
 
