@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CARD on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases mesh,mesh_serve]
+
+With no argument every phase runs (the kernels line needs them all);
+``--phases`` picks some of PHASES (device and build always run; the
+kernels line is left out and the last line names the phases run).
 
 Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
   1. device   the card's name and power limit (nvidia-smi), the torch and
@@ -155,7 +159,7 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
   7. lm       granite-8b at full width and depth in bf16 (seeded random
               weights): a 32,768-token Model.prefill through kernel D
               (36 launches, all on the tensor cores; kernel time, peak
-              memory); serve_loop at batch 4, prompt 64, 64 new tokens,
+              memory); serve_loop at batch 4, prompt 16, 16 new tokens,
               and a profiled short serve_loop for decode's device busy
               share; and, at depth 4 in f32, prefill's last logits against
               token-by-token decode_step;
@@ -250,7 +254,8 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               share main's ``make_host_mesh()``), params laid out in place
               by ``sharding.distribute_model``, the KV cache by
               ``init_cache`` inside ``use_rules`` (its sequence over
-              "cache_seq"): granite-8b at full width and depth, bf16,
+              "cache_seq"): granite-8b at full width and 8 of its 36
+              layers, bf16,
               ``serve_loop`` at batch 4, a 16-token prompt and 16 new
               tokens on the mesh and off it, under decode_32k's rules
               (``default_rules(cfg, decode=True)``) and long_500k's
@@ -259,10 +264,15 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               off-mesh top-2 margin is within one bf16 rounding step (a
               near tie, reported); the same at 2 layers in f32, every
               step's logits within 1e-5 relative; a 4,096-token
-              ``Model.prefill`` on and off the mesh (36 kernel D launches
+              ``Model.prefill`` on and off the mesh (8 kernel D launches
               each, all on the tensor cores); qwen3-moe-30b-a3b at full
               width and 2 of 48 layers served the same way under its
-              decode rules (MoE's "ep" branch); then
+              decode rules (MoE's "ep" branch); mamba2-130m at full
+              size and jamba-v0.1-52b at full width and one period (8 of
+              32 layers, MoE "ep"), bf16, served the same way under
+              decode_32k's rules (every mesh step's logits a DTensor,
+              jamba's all_to_all), and mamba2's 4,096-token prefill on
+              and off the mesh (no kernel D); then
               ``distributed.pipeline.pipeline_apply`` over a one-rank "pod"
               axis, each stage 2 granite-8b blocks at full width in bf16,
               x [4, 2048, 4096] in 4 microbatches, against
@@ -2582,7 +2592,9 @@ def tf32_phase(gpu: DedupStore, versions: list[bytes], want: list) -> None:
 # prefill_32k's length (configs/base.py LM_SHAPES), cut from global batch
 # 32 to one prompt on one card; the serving batch; the parity run
 PREFILL_LEN = 32_768
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 64
+# (prompt and new tokens cut from 64 to 16 to make room for the SSM and
+# hybrid serves of phase mesh_serve)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 16
 # (the profiler's post-processing grows with the steps profiled: cut
 # from 8 + 16 steps to 4 + 8 to make room for phase launch)
 PROFILE_PROMPT, PROFILE_GEN = 4, 8
@@ -3636,6 +3648,10 @@ MESH_RTOL = 1e-6
 # lookup or a gradient routed through another op shows here (a bf16
 # embedding gradient summed in f32 moved the grad norm by 18 %)
 MESH_BF16_RTOL = 1e-3
+# mamba2-130m at full size (24 layers, d 768, 128.9 M parameters): the SSM
+# mixer's chunked scan in shard_map, the same steps and batches; its f32
+# step at 2 layers
+MESH_SSM_ARCH, MESH_SSM_F32_LAYERS = "mamba2-130m", 2
 
 
 def mesh_run(model, init: dict, batches: list, tx, mesh, rules) -> dict:
@@ -3643,7 +3659,8 @@ def mesh_run(model, init: dict, batches: list, tx, mesh, rules) -> dict:
     ``use_rules(rules, mesh)`` with the params laid out by
     ``distribute_params``, or without a mesh (``mesh`` None). Returns the
     metrics, step seconds, peak memory, kernel D's launches inside the
-    steps, the NCCL all_to_all calls, and the final params (plain)."""
+    steps, the NCCL all_to_all calls, the final params (plain), the leaves
+    whose first gradient was 0 everywhere and those that did not move."""
     import torch.distributed as tdist
     from torch.distributed.tensor import DTensor
 
@@ -3651,6 +3668,7 @@ def mesh_run(model, init: dict, batches: list, tx, mesh, rules) -> dict:
 
     calls = [0]
     a2a = tdist.all_to_all_single
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
 
     def counted(*args, **kwargs):
         calls[0] += 1
@@ -3668,7 +3686,7 @@ def mesh_run(model, init: dict, batches: list, tx, mesh, rules) -> dict:
             state = train.init_state(params, tx)
             del params
             ops.reset_launches()
-            for batch in batches:
+            for i, batch in enumerate(batches):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 state, m = step(state, batch)
@@ -3676,11 +3694,15 @@ def mesh_run(model, init: dict, batches: list, tx, mesh, rules) -> dict:
                 seconds.append(time.perf_counter() - t0)
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
+                if i == 0:
+                    # at step 1, mu = (1 - b1) g
+                    dead = [k for k, mu in state.opt_state.mu.items()
+                            if not bool((whole(mu) != 0).any())]
             launches = dict(ops.LAUNCHES)
     finally:
         tdist.all_to_all_single = a2a
-    final = {k: (v.full_tensor() if isinstance(v, DTensor) else v)
-             for k, v in state.params.items()}
+    final = {k: whole(v) for k, v in state.params.items()}
+    still = [k for k, v in final.items() if torch.equal(v, init[k])]
     placements = {tuple(map(str, v.placements)) for v in state.params.values()
                   if isinstance(v, DTensor)}
     del state
@@ -3688,7 +3710,69 @@ def mesh_run(model, init: dict, batches: list, tx, mesh, rules) -> dict:
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 flash_attention=launches["flash_attention"],
                 flash_attention_sm90=launches["flash_attention_sm90"],
-                nccl_all_to_all=calls[0], placements=sorted(placements))
+                nccl_all_to_all=calls[0], placements=sorted(placements), dead=dead,
+                unmoved=still)
+
+
+def mesh_pair(cfg, rules, b: int, n: int, steps: int, mesh) -> tuple[dict, dict, dict, float]:
+    """``steps`` AdamW steps of a fresh ``cfg`` model (seed 0) on ``mesh``
+    and off it, from the same params and token batches [b, n] -> (on, off,
+    the relative loss and grad norm differences, the largest param
+    difference)."""
+    model = make_model(cfg, seed=0)
+    init = train.model_params(model)     # the step is pure: both runs start here
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, b, n))
+    batches = [pipe.batch(i) for i in range(steps)]
+    tx = optim.adamw(3e-4, weight_decay=0.1)
+    on = mesh_run(model, init, batches, tx, mesh, rules)
+    off = mesh_run(model, init, batches, tx, None, None)
+    on["params"] = sum(v.numel() for v in init.values())
+    diff = max(float((on["final"][k].float() - off["final"][k].float()).abs().max())
+               for k in init)
+    rel = {k: [abs(x - y) / max(abs(y), 1e-30) for x, y in zip(on[k], off[k])]
+           for k in ("losses", "grad_norms")}
+    return on, off, rel, diff
+
+
+def mesh_ssm(mesh, backend: str) -> None:
+    """mamba2-130m on the mesh and off it: 3 bf16 steps at full size, then
+    one f32 step at 2 layers. Gates: finite losses, every gradient nonzero,
+    every param moved, the bf16 steps within MESH_BF16_RTOL of those off the
+    mesh, and the f32 step's loss, grad norm and params within MESH_RTOL."""
+    from repro_torch.distributed import sharding
+
+    full = get_config(MESH_SSM_ARCH)
+    for dtype, layers, b, n, steps in (
+            ("bfloat16", full.num_layers, MESH_BATCH, MESH_LEN, MESH_STEPS),
+            ("float32", MESH_SSM_F32_LAYERS, MESH_F32_BATCH, MESH_F32_LEN, 1)):
+        cfg = dataclasses.replace(full, num_layers=layers, dtype=dtype)
+        on, off, rel, diff = mesh_pair(cfg, sharding.default_rules(cfg), b, n, steps, mesh)
+        scale = max(float(v.float().abs().max()) for v in on["final"].values())
+        emit("mesh", part=f"ssm_{dtype}", arch=MESH_SSM_ARCH, dtype=dtype, layers=layers,
+             full_layers=full.num_layers, params=on["params"],
+             batch=b, tokens=n, steps=steps, mesh=mesh.shape, backend=backend,
+             placements=on["placements"],
+             **{f"{k}_mesh": on[k] for k in ("losses", "grad_norms", "step_s", "peak_bytes",
+                                             "flash_attention", "dead", "unmoved")},
+             **{f"{k}_no_mesh": off[k] for k in ("losses", "grad_norms", "step_s",
+                                                 "peak_bytes")},
+             rel_diff=rel, max_param_diff=diff, param_abs_max=scale,
+             bit_equal=diff == 0 and max(max(v) for v in rel.values()) == 0)
+        if not all(np.isfinite(on["losses"] + on["grad_norms"])):
+            fail(f"mesh {MESH_SSM_ARCH} {dtype}: a loss or grad norm is not finite")
+        if on["dead"] or on["unmoved"]:
+            fail(f"mesh {MESH_SSM_ARCH} {dtype}: no gradient for {on['dead']}, not moved: "
+                 f"{on['unmoved']}")
+        if on["flash_attention"] or off["flash_attention"]:
+            fail(f"mesh {MESH_SSM_ARCH}: kernel D launched in an attention-free arch")
+        tol = MESH_RTOL if dtype == "float32" else MESH_BF16_RTOL
+        if max(max(v) for v in rel.values()) > tol \
+                or (dtype == "float32" and diff > MESH_RTOL * scale):
+            fail(f"mesh {MESH_SSM_ARCH}: the {dtype} steps on the mesh != without it: {rel}, "
+                 f"params {diff}")
+        del on, off
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def mesh_phase(dev, mesh) -> int:
@@ -3712,21 +3796,10 @@ def mesh_phase(dev, mesh) -> int:
         rules = sharding.default_rules(cfg)
         if rules.moe_mode != "ep":
             fail(f"mesh: {MESH_ARCH}'s default rules take moe_mode {rules.moe_mode}")
-        model = make_model(cfg, seed=0)
-        init = train.model_params(model)     # the step is pure: both runs start here
-        pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, b, n))
-        batches = [pipe.batch(i) for i in range(steps)]
-        tx = optim.adamw(3e-4, weight_decay=0.1)
-        on = mesh_run(model, init, batches, tx, mesh, rules)
-        off = mesh_run(model, init, batches, tx, None, None)
-        diff = max(float((on["final"][k].float() - off["final"][k].float()).abs().max())
-                   for k in init)
-        rel = {k: [abs(x - y) / max(abs(y), 1e-30) for x, y in zip(on[k], off[k])]
-               for k in ("losses", "grad_norms")}
+        on, off, rel, diff = mesh_pair(cfg, rules, b, n, steps, mesh)
         per_step = 2 * sum(k.mixer == "attn" for k in layer_kinds(cfg))   # remat
         row = dict(arch=MESH_ARCH, dtype=dtype, layers=cfg.num_layers,
-                   full_layers=full.num_layers,
-                   params=sum(v.numel() for v in init.values()), batch=b, tokens=n,
+                   full_layers=full.num_layers, params=on["params"], batch=b, tokens=n,
                    steps=steps, mesh=mesh.shape, backend=backend,
                    moe_mode=rules.moe_mode, placements=on["placements"],
                    **{f"{k}_mesh": on[k] for k in ("losses", "grad_norms", "step_s",
@@ -3754,9 +3827,10 @@ def mesh_phase(dev, mesh) -> int:
                                                  else MESH_BF16_RTOL):
             fail(f"mesh: the {dtype} steps on the mesh != without it: {rel}")
         total += on["flash_attention"]
-        del model, init, on, off
+        del on, off
         gc.collect()
         torch.cuda.empty_cache()
+    mesh_ssm(mesh, backend)
     emit("mesh", part="summary", flash_attention_launches=total,
          phase_s=time.perf_counter() - t0)
     return total
@@ -3764,9 +3838,11 @@ def mesh_phase(dev, mesh) -> int:
 
 # --- phase 11: serving on the device mesh, and the pipeline ---------------------
 
-# granite-8b at full width and depth (36 layers, 8.17 B parameters) served
+# granite-8b at full width and 8 of its 36 layers (as phase train runs it;
+# cut from full depth to make room for the SSM and hybrid serves) served
 # as decode_32k and long_500k lower their decode: batch 4 (long: 1), a
 # 16-token prompt, 16 new tokens; the f32 check at 2 layers
+MS_LAYERS = 8
 MS_BATCH, MS_LONG_BATCH, MS_PROMPT, MS_GEN = 4, 1, 16, 16
 MS_F32_LAYERS, MS_F32_RTOL = 2, 1e-5
 MS_PREFILL_LEN = 4096
@@ -3775,6 +3851,11 @@ MS_PREFILL_LEN = 4096
 # few bf16 steps at most
 MS_PREFILL_RTOL = 2e-2
 MS_MOE_ARCH, MS_MOE_LAYERS = "qwen3-moe-30b-a3b", 2
+# mamba2-130m at full size and jamba-v0.1-52b at full width and one block
+# period (8 of its 32 layers, as phase lm_families runs it: 52 B parameters
+# do not fit one card), bf16, served as granite is under decode_32k's
+# rules; mamba2's prefill at MS_PREFILL_LEN
+MS_SSM_ARCHS = ("mamba2-130m", "jamba-v0.1-52b")
 # the pipeline's stage: 2 granite-8b blocks at full width, bf16, x [4,
 # 2048, 4096] in 4 microbatches over a one-rank "pod" axis
 PIPE_BLOCKS, PIPE_BATCH, PIPE_LEN, PIPE_MICRO = 2, 4, 2048, 4
@@ -3819,16 +3900,18 @@ def recorded_serve(model, prompts, keep_logits: bool, mesh=None, rules=None) -> 
     """``serve.serve_loop`` (inside ``use_rules(rules, mesh)`` when ``mesh``
     is given), with every step's logits recorded: whole in f32 where
     ``keep_logits``, else the top two of each row. Returns the tokens,
-    the loop's seconds, the first step's seconds, peak memory and the port's
-    collectives a step."""
+    the loop's seconds, the first step's seconds, peak memory, the port's
+    collectives a step, and whether every step's logits came back a
+    DTensor (a step that ran on the mesh)."""
     from repro_torch.distributed import sharding
 
-    rec, first = [], []
+    rec, first, laid = [], [], []
     real = model.decode_step
 
     def step(token, cache, extras=None):
         t0 = time.perf_counter()
         logits, cache = real(token, cache, extras)
+        laid.append(isinstance(logits, sharding.DTensor))
         if not first:
             torch.cuda.synchronize()
             first.append(time.perf_counter() - t0)
@@ -3852,7 +3935,8 @@ def recorded_serve(model, prompts, keep_logits: bool, mesh=None, rules=None) -> 
                 first_step_s=first[0], step_s=decode_s / MS_GEN,
                 decode_tokens_per_s=out.shape[0] * MS_GEN / decode_s,
                 peak_bytes=torch.cuda.max_memory_allocated(),
-                collectives_per_step={k: v / steps for k, v in counts.items()})
+                collectives_per_step={k: v / steps for k, v in counts.items()},
+                on_mesh=all(laid))
 
 
 def bf16_step(x: torch.Tensor) -> torch.Tensor:
@@ -3903,12 +3987,12 @@ def prefill_launches(model, tokens, mesh=None, rules=None) -> tuple[torch.Tensor
 
 def mesh_serve_granite(dev, mesh, gen) -> int:
     """(a): granite-8b served on and off the mesh under both layouts,
-    bf16 at full depth and f32 at 2 layers, and the 4,096-token prefill;
+    bf16 at MS_LAYERS and f32 at 2 layers, and the 4,096-token prefill;
     returns kernel D's launches."""
     from repro_torch.distributed import sharding
 
     launches = 0
-    for dtype, layers in (("bfloat16", LM.num_layers), ("float32", MS_F32_LAYERS)):
+    for dtype, layers in (("bfloat16", MS_LAYERS), ("float32", MS_F32_LAYERS)):
         cfg = dataclasses.replace(LM, num_layers=layers, dtype=dtype)
         layouts = serve_layouts(cfg)
         model = make_model(cfg, seed=0)
@@ -4002,6 +4086,63 @@ def mesh_serve_moe(dev, mesh, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def mesh_serve_ssm(dev, mesh, gen) -> None:
+    """(c): mamba2-130m and jamba-v0.1-52b (one period) served on and off
+    the mesh under decode_32k's rules, and mamba2's prefill on and off it.
+    Gates: every mesh step ran on the mesh, tokens equal but at a near tie,
+    jamba's MoE in "ep" with its all_to_all, the prefill equal."""
+    from repro_torch.distributed import sharding
+
+    for arch in MS_SSM_ARCHS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=FAMILY_DEPTH.get(arch, full.num_layers))
+        rules, b = serve_layouts(cfg)["decode_32k"]
+        model = make_model(cfg, seed=0)
+        prompts = torch.randint(0, cfg.vocab_size, (b, MS_PROMPT), device=dev, generator=gen)
+        off = recorded_serve(model, prompts, False)
+        ssm_only = cfg.is_attention_free
+        if ssm_only:
+            tokens = torch.randint(0, cfg.vocab_size, (1, MS_PREFILL_LEN), device=dev,
+                                   generator=gen)
+            pre_off, pre_off_row = prefill_launches(model, tokens)
+        sharding.distribute_model(model, mesh, rules)
+        on = recorded_serve(model, prompts, False, mesh, rules)
+        ties = near_tie_check(arch, on, off)
+        emit("mesh_serve", part="ssm", arch=arch, family=cfg.family, layers=cfg.num_layers,
+             full_layers=full.num_layers, dtype=cfg.dtype, moe_mode=rules.moe_mode,
+             batch=b, prompt=MS_PROMPT, gen=MS_GEN, near_ties=ties,
+             tokens_equal=bool(np.array_equal(on["tokens"], off["tokens"])),
+             first_tokens=on["tokens"][:, :8].tolist(),
+             **{f"{k}_mesh": on[k] for k in ("prefill_s", "decode_s", "step_s", "first_step_s",
+                                             "decode_tokens_per_s", "peak_bytes",
+                                             "collectives_per_step", "on_mesh")},
+             **{f"{k}_no_mesh": off[k] for k in ("prefill_s", "decode_s", "step_s",
+                                                 "decode_tokens_per_s", "peak_bytes",
+                                                 "collectives_per_step", "on_mesh")})
+        if not on["on_mesh"] or off["on_mesh"] \
+                or sum(off["collectives_per_step"].values()) != 0:
+            fail(f"mesh_serve {arch}: the mesh serve ran off the mesh, or the plain one on it")
+        if cfg.num_experts and (rules.moe_mode != "ep"
+                                or on["collectives_per_step"]["all_to_all_single"] <= 0):
+            fail(f"mesh_serve {arch}: MoE in {rules.moe_mode} with "
+                 f"{on['collectives_per_step']} a step")
+        if ssm_only:
+            pre_on, pre_on_row = prefill_launches(model, tokens, mesh, rules)
+            err = float((pre_on - pre_off).abs().max())
+            emit("mesh_serve", part="ssm_prefill", arch=arch, tokens=MS_PREFILL_LEN,
+                 mesh=pre_on_row, no_mesh=pre_off_row, max_abs_diff=err,
+                 logits_abs_max=float(pre_off.abs().max()),
+                 bit_equal=bool(torch.equal(pre_on, pre_off)))
+            if pre_on_row["flash_attention"] or pre_off_row["flash_attention"]:
+                fail(f"mesh_serve {arch} prefill: kernel D launched in an attention-free arch")
+            if not bool(torch.isfinite(pre_on).all()) \
+                    or err > MS_PREFILL_RTOL * float(pre_off.abs().max()):
+                fail(f"mesh_serve {arch} prefill: the last logits differ by {err} on the mesh")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def mesh_serve_pipeline(dev, gen) -> int:
     """(c): ``pipeline_apply`` over a one-rank "pod" axis, each stage 2
     granite-8b blocks, against ``reference_apply``, then one backward;
@@ -4028,6 +4169,7 @@ def mesh_serve_pipeline(dev, gen) -> int:
 
     x = torch.randn(PIPE_BATCH, PIPE_LEN, LM.d_model, device=dev, generator=gen,
                     dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         want = pipeline.reference_apply(stage, params, x)
     ops.reset_launches()
@@ -4081,13 +4223,37 @@ def mesh_serve_phase(dev, mesh) -> int:
     gen = torch.Generator(device=dev).manual_seed(11)
     launches = mesh_serve_granite(dev, mesh, gen)
     mesh_serve_moe(dev, mesh, gen)
+    mesh_serve_ssm(dev, mesh, gen)
     launches += mesh_serve_pipeline(dev, gen)
     emit("mesh_serve", part="summary", flash_attention_launches=launches,
          phase_s=time.perf_counter() - t0)
     return launches
 
 
-def main() -> int:
+# the phases a run may pick (``--phases``); every one runs by default
+PHASES = ("kernel", "main", "baselines", "backends", "lifecycle", "serve", "features",
+          "checkpoint", "parity", "lm", "lm_families", "train", "launch", "mesh", "mesh_serve")
+# the phases that read the card's dedup workloads
+CARD_PHASES = PHASES[:8]
+
+
+def parse_phases(argv: list[str]) -> tuple[str, ...]:
+    """``--phases name,name`` -> the phases to run, in PHASES order (device
+    and build always run); no argument -> all of them."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    names = [n for n in ap.parse_args(argv).phases.split(",") if n]
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown or not names:
+        ap.error(f"unknown phases {unknown}; pick from {', '.join(PHASES)}")
+    return tuple(n for n in PHASES if n in names)
+
+
+def main(argv: list[str] | None = None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4098,7 +4264,8 @@ def main() -> int:
         fail("TF32 matmul is enabled")
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(dev),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+         cuda=torch.version.cuda, allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         phases=list(phases))
 
     t0 = time.perf_counter()
     _build.lib()
@@ -4114,88 +4281,110 @@ def main() -> int:
     if not hgmma or min(hgmma) == 0:
         fail(f"the tensor-core flash kernel holds no HGMMA: {sass}")
 
-    main_versions = {name: workloads.make_workload(
-        name, workloads.WorkloadConfig(base_size=BASE, versions=VERSIONS))
-        for name in ("sql_dump", "vmdk")}
-    # the main path scans each stream at its length rounded up to 128
-    # (kernels/ingest.scan_length); before, at its pow2 bucket (64 MiB)
-    scan_n = max(ingest.scan_length(len(v)) for versions in main_versions.values()
-                 for v in versions)
-    bucket_n = max(features.bucket_pow2(len(v)) for versions in main_versions.values()
-                   for v in versions)
+    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0, "rabin": 0,
+                "flash_attention": 0}
+    rows = []
+    if set(phases) & set(CARD_PHASES):
+        main_versions = {name: workloads.make_workload(
+            name, workloads.WorkloadConfig(base_size=BASE, versions=VERSIONS))
+            for name in ("sql_dump", "vmdk")}
+    if "kernel" in phases:
+        # the main path scans each stream at its length rounded up to 128
+        # (kernels/ingest.scan_length); before, at its pow2 bucket (64 MiB)
+        scan_n = max(ingest.scan_length(len(v)) for versions in main_versions.values()
+                     for v in versions)
+        bucket_n = max(features.bucket_pow2(len(v)) for versions in main_versions.values()
+                       for v in versions)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rabin = check_rabin(dev, main_versions["sql_dump"][1])
+        rows = [check_gear(dev, sorted({1, 31, 33, 100, 8193, BASE, scan_n, bucket_n}), gen,
+                           scan_n, bucket_n),
+                check_embed(dev, gen, real_extract(dev, main_versions["sql_dump"][1])),
+                check_topk(dev, gen, BIG_N),
+                check_attn(dev, gen, PREFILL_LEN)]
+        rows[0]["rabin_packed"] = rabin
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rabin = check_rabin(dev, main_versions["sql_dump"][1])
-    rows = [check_gear(dev, sorted({1, 31, 33, 100, 8193, BASE, scan_n, bucket_n}), gen,
-                       scan_n, bucket_n),
-            check_embed(dev, gen, real_extract(dev, main_versions["sql_dump"][1])),
-            check_topk(dev, gen, BIG_N),
-            check_attn(dev, gen, PREFILL_LEN)]
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            launches[k] += v
 
-    rows[0]["rabin_packed"] = rabin
-
-    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0, "rabin": 0}
-    for name, versions in main_versions.items():
-        for k, v in main_path(name, versions).items():
-            launches[k] += v
-        device_share(name, versions[:2])
-    for name, versions in main_versions.items():
-        for k, v in baselines_phase(dev, name, versions).items():
-            launches[k] += v
-    for name, versions in main_versions.items():
-        for k, v in backends_phase(dev, name, versions).items():
-            launches[k] += v
-    for k, v in lifecycle_phase(dev, main_versions).items():
-        launches[k] += v
-    for k, v in serve_phase(dev, main_versions).items():
-        launches[k] += v
-    gear_packed, feature_launches = features_phase(dev, main_versions)
-    for k, v in feature_launches.items():
-        launches[k] += v
-    launches["gear_packed"] = gear_packed["launches"]["gear_hashes"]
-    launches["gear_scan"] += launches["gear_packed"]
-    launches["shingle_embed"] += gear_packed["launches"]["shingle_embed"]
-    for k, v in checkpoint_phase(dev).items():
-        launches[k] += v
-    small = workloads.make_workload(
-        "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))
-    parity_phase(*fit_phase(small), small)
-    del main_versions, small
+    if "main" in phases:
+        for name, versions in main_versions.items():
+            add(main_path(name, versions))
+            device_share(name, versions[:2])
+    for phase, fn in (("baselines", baselines_phase), ("backends", backends_phase)):
+        if phase in phases:
+            for name, versions in main_versions.items():
+                add(fn(dev, name, versions))
+    if "lifecycle" in phases:
+        add(lifecycle_phase(dev, main_versions))
+    if "serve" in phases:
+        add(serve_phase(dev, main_versions))
+    gear_packed = None
+    if "features" in phases:
+        gear_packed, feature_launches = features_phase(dev, main_versions)
+        add(feature_launches)
+        launches["gear_packed"] = gear_packed["launches"]["gear_hashes"]
+        launches["gear_scan"] += launches["gear_packed"]
+        launches["shingle_embed"] += gear_packed["launches"]["shingle_embed"]
+    if "checkpoint" in phases:
+        add(checkpoint_phase(dev))
+    if "parity" in phases:
+        small = workloads.make_workload(
+            "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))
+        parity_phase(*fit_phase(small), small)
+        del small
+    main_versions = None
     gc.collect()
     torch.cuda.empty_cache()
-    launches["flash_attention"] = lm_phase(dev) + lm_families_phase(dev)
-    train_launches, train_row = train_phase(dev)
-    launches["flash_attention"] += train_launches
-    for k, v in launch_phase(dev).items():
-        launches[k] += v
-    import torch.distributed as tdist
+    if "lm" in phases:
+        launches["flash_attention"] += lm_phase(dev)
+    if "lm_families" in phases:
+        launches["flash_attention"] += lm_families_phase(dev)
+    train_row = None
+    if "train" in phases:
+        train_launches, train_row = train_phase(dev)
+        launches["flash_attention"] += train_launches
+    if "launch" in phases:
+        add(launch_phase(dev))
+    mesh_launches = mesh_serve_launches = 0
+    if "mesh" in phases or "mesh_serve" in phases:
+        import torch.distributed as tdist
 
-    from repro_torch.launch import mesh as launch_mesh
-    mesh = launch_mesh.make_host_mesh()
-    try:
-        mesh_launches = mesh_phase(dev, mesh)
-        mesh_serve_launches = mesh_serve_phase(dev, mesh)
-    finally:
-        tdist.destroy_process_group()
+        from repro_torch.launch import mesh as launch_mesh
+        mesh = launch_mesh.make_host_mesh()
+        try:
+            if "mesh" in phases:
+                mesh_launches = mesh_phase(dev, mesh)
+            if "mesh_serve" in phases:
+                mesh_serve_launches = mesh_serve_phase(dev, mesh)
+        finally:
+            tdist.destroy_process_group()
     launches["flash_attention"] += mesh_launches + mesh_serve_launches
 
-    sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed, "sim_topk": sim_topk,
-               "flash_attention": flash_attn}
-    for row in rows:
-        mod = sources[row["name"]]
-        row.update(route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
-                   launches=launches[row["name"]])
-    rows[0]["rabin_launches"] = launches["rabin"]
-    rows[0]["gear_packed"] = gear_packed
-    rows[0]["gear_packed_launches"] = launches["gear_packed"]
-    rows[3]["train_row"] = train_row
-    rows[3]["mesh_launches"] = mesh_launches
-    rows[3]["mesh_serve_launches"] = mesh_serve_launches
     print(smi, flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    if phases == PHASES:
+        # the kernels line holds every path's launches: a full run only
+        sources = {"gear_scan": gear_hash, "shingle_embed": shingle_embed,
+                   "sim_topk": sim_topk, "flash_attention": flash_attn}
+        for row in rows:
+            mod = sources[row["name"]]
+            row.update(route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
+                       launches=launches[row["name"]])
+        rows[0]["rabin_launches"] = launches["rabin"]
+        rows[0]["gear_packed"] = gear_packed
+        rows[0]["gear_packed_launches"] = launches["gear_packed"]
+        rows[3]["train_row"] = train_row
+        rows[3]["mesh_launches"] = mesh_launches
+        rows[3]["mesh_serve_launches"] = mesh_serve_launches
+        print(json.dumps({"kernels": rows}), flush=True)
+    last = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}}
+    if phases != PHASES:
+        # a partial run's last line names its phases: only a full run
+        # ends in the bare line
+        last["phases"] = list(phases)
+    print(json.dumps(last), flush=True)
     return 0
 
 

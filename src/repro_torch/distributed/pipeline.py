@@ -18,8 +18,9 @@ backward pass (reverse hand-offs).
 
 ``stage_fn(params_s, x_mb) -> y_mb`` must be shape-preserving (equal-width
 stages), which matches the repeating-block structure of
-``models/transformer.py``. ``stage_params`` is a dict of tensors, each with
-a leading [S] axis (the reference's pytree).
+``models/transformer.py``. ``stage_params`` is a dict of tensors, nested
+to any depth (a block's ``{"attn": {"wq": ...}, "ln1": {...}}``), each
+leaf with a leading [S] axis: the reference's pytree.
 
 The reference's ``jnp.where(stage == 0, ...)`` picks a value on the
 device; here the stage is known on the host, so the branch is a Python
@@ -54,14 +55,21 @@ def _pick(keep: torch.Tensor, drop: torch.Tensor) -> torch.Tensor:
     return _Pick.apply(keep, drop)
 
 
+def _stage(stage_params: dict, i: int) -> dict:
+    """Stage ``i``'s params: every leaf of the nested dict indexed at ``i``
+    on its leading axis (the reference's ``tree_map(lambda p: p[i])``)."""
+    return shd._unflatten_like(stage_params, (v[i] for v in shd._flat_values(stage_params)))
+
+
 def pipeline_apply(stage_fn: Callable, stage_params: dict, x: torch.Tensor,
                    *, mesh, axis: str = "pod",
                    num_microbatches: int | None = None) -> torch.Tensor:
     """x [B, ...] -> the stages applied in order, pipelined over ``axis``.
 
-    stage_params: ``{name: tensor}`` with a leading [S] axis (S =
-    ``mesh.shape[axis]``). B must be a multiple of the microbatch count
-    (default S). The result is the last stage's output [B, ...]."""
+    stage_params: a nested dict of tensors, each leaf with a leading [S]
+    axis (S = ``mesh.shape[axis]``). B must be a multiple of the
+    microbatch count (default S). The result is the last stage's output
+    [B, ...]."""
     s = mesh.shape[axis]
     b = x.shape[0]
     m = num_microbatches or s
@@ -74,7 +82,7 @@ def pipeline_apply(stage_fn: Callable, stage_params: dict, x: torch.Tensor,
 
     def local(params_local, xs_local):
         # this stage's params (leading axis of 1 stripped)
-        params_local = {k: v[0] for k, v in params_local.items()}
+        params_local = _stage(params_local, 0)
         stage = shd.axis_index(axis)
         buf = torch.zeros_like(xs_local[0])           # activation entering this stage
         emits = []
@@ -101,7 +109,7 @@ def pipeline_apply(stage_fn: Callable, stage_params: dict, x: torch.Tensor,
 
 def reference_apply(stage_fn: Callable, stage_params: dict, x: torch.Tensor) -> torch.Tensor:
     """Sequential oracle: apply every stage in order (tests)."""
-    s = next(iter(stage_params.values())).shape[0]
+    s = shd._flat_values(stage_params)[0].shape[0]
     for i in range(s):
-        x = stage_fn({k: v[i] for k, v in stage_params.items()}, x)
+        x = stage_fn(_stage(stage_params, i), x)
     return x

@@ -160,9 +160,9 @@ class Block(nn.Module):
         return x, None
 
 
-# the families whose every sublayer runs on a device mesh (the SSM mixer and
-# the cross sublayers do not yet)
-MESH_FAMILIES = ("dense", "moe")
+# the families whose every sublayer runs on a device mesh (the cross
+# sublayers and the audio encoder do not yet)
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 # the audio encoder's sublayer: self-attention (run non-causal) and an MLP
 ENCODER_KIND = SublayerKind("attn", False, False, True)

@@ -8,11 +8,15 @@ store), from the same seeded numpy params and input, at 1, 2, 4 and 8
 microbatches. The output matches the port's ``reference_apply`` and the
 reference's pipeline, and the gradient of ``sum(y ** 2)`` (params and
 input) matches ``jax.grad``'s, each within ``TOL``; every stage's gradient
-is nonzero. ``ppermute`` (a partial permutation, whose unsent ranks get
-zeros) and ``pmax`` match JAX's, and ``ppermute``'s gradient taken on a
-fresh thread (where CUDA's autograd engine runs a backward, with no
-shard_map context set) equals the one taken on the calling thread. Both
-groups are joined with a deadline and killed past it.
+is nonzero. The same stages with their params nested one level
+(``{"lin": {"w", "b"}}``, as a block's ``attn.wq`` is) go through
+``pipeline_apply`` at 2 microbatches and through ``reference_apply``,
+each against the reference's pipeline in value and gradient.
+``ppermute`` (a partial permutation, whose unsent ranks get zeros) and
+``pmax`` match JAX's, and ``ppermute``'s gradient taken on a fresh
+thread (where CUDA's autograd engine runs a backward, with no shard_map
+context set) equals the one taken on the calling thread. Both groups are
+joined with a deadline and killed past it.
 """
 import os
 import pickle
@@ -36,6 +40,7 @@ torch.set_num_threads(1)
 TOL = 1e-5
 S, D, B = 4, 16, 8
 MICROBATCHES = (1, 2, 4, 8)
+NESTED_MICROBATCHES = 2
 # a partial permutation: rank 2 receives nothing, rank 3 sends nothing
 PERM = ((0, 1), (1, 3), (2, 0))
 DEADLINE = 180.0
@@ -58,7 +63,7 @@ REF_SCRIPT = textwrap.dedent("""
     from repro.distributed.sharding import shard_map
     from repro.launch.mesh import make_mesh
     sys.path.insert(0, sys.argv[2])
-    from test_torch_pipeline_parallel import MICROBATCHES, PERM, _inputs
+    from test_torch_pipeline_parallel import MICROBATCHES, NESTED_MICROBATCHES, PERM, _inputs
 
     mesh = make_mesh((4,), ("pod",))
     inp = _inputs()
@@ -80,6 +85,19 @@ REF_SCRIPT = textwrap.dedent("""
         out[m] = {"y": np.asarray(y), "w": np.asarray(gp["w"]), "b": np.asarray(gp["b"]),
                   "x": np.asarray(gx)}
 
+    def nested_stage(p, x):
+        return jnp.tanh(x @ p["lin"]["w"] + p["lin"]["b"])
+
+    def nested_loss(p, x):
+        with mesh:
+            y = pipeline_apply(nested_stage, p, x, mesh=mesh, axis="pod",
+                               num_microbatches=NESTED_MICROBATCHES)
+        return jnp.sum(y ** 2), y
+    (_, y), (gp, gx) = jax.value_and_grad(nested_loss, argnums=(0, 1), has_aux=True)(
+        {"lin": params}, x)
+    out["nested"] = {"y": np.asarray(y), "w": np.asarray(gp["lin"]["w"]),
+                     "b": np.asarray(gp["lin"]["b"]), "x": np.asarray(gx)}
+
     def local(c):
         return (jax.lax.ppermute(c, "pod", PERM), jax.lax.pmax(c, "pod"))
     with mesh:
@@ -92,6 +110,10 @@ REF_SCRIPT = textwrap.dedent("""
 
 def _stage(p, x):
     return torch.tanh(x @ p["w"] + p["b"])
+
+
+def _nested_stage(p, x):
+    return torch.tanh(x @ p["lin"]["w"] + p["lin"]["b"])
 
 
 def _rank(rank: int, world: int, store: str, workdir: str) -> None:
@@ -115,6 +137,16 @@ def _rank(rank: int, world: int, store: str, workdir: str) -> None:
             (y ** 2).sum().backward()
             out[m] = {"y": y.detach().numpy(),
                       **{k: v.grad.numpy() for k, v in leaves.items()}}
+        for name, apply in (("nested", lambda p, x: pipeline_apply(
+                _nested_stage, p, x, mesh=mesh, axis="pod",
+                num_microbatches=NESTED_MICROBATCHES)),
+                            ("nested_sequential", lambda p, x: reference_apply(
+                                _nested_stage, p, x))):
+            leaves = {k: inp[k].clone().requires_grad_(True) for k in ("w", "b", "x")}
+            y = apply({"lin": {"w": leaves["w"], "b": leaves["b"]}}, leaves["x"])
+            (y ** 2).sum().backward()
+            out[name] = {"y": y.detach().numpy(),
+                         **{k: v.grad.numpy() for k, v in leaves.items()}}
 
         def local(c):
             return shd.ppermute(c, "pod", PERM), shd.pmax(c, "pod")
@@ -195,6 +227,19 @@ def test_pipeline_gradient_matches_reference(runs, m):
         assert np.isfinite(got[m]["w"]).all()
         assert (np.abs(got[m]["w"]).sum(axis=(1, 2)) > 0).all()
         assert (np.abs(got[m]["b"]).sum(axis=1) > 0).all()
+
+
+@pytest.mark.parametrize("route", ["nested", "nested_sequential"])
+def test_nested_stage_params_match_reference(runs, route):
+    """Stage params nested one level (``{"lin": {"w": [S, D, D], "b": [S,
+    D]}}``): ``pipeline_apply`` and ``reference_apply`` give the
+    reference pipeline's output and gradient (params and input)."""
+    ref, port = runs
+    for got in port:
+        for k in ("y", "w", "b", "x"):
+            np.testing.assert_allclose(got[route][k], ref["nested"][k], rtol=TOL, atol=TOL,
+                                       err_msg=f"{route} {k}")
+        assert (np.abs(got[route]["w"]).sum(axis=(1, 2)) > 0).all()
 
 
 def test_ppermute_and_pmax_match_jax(runs):
