@@ -7,6 +7,15 @@ With no argument every phase runs (the kernels line needs them all);
 ``--phases`` picks some of PHASES (device and build always run; the
 kernels line is left out and the last line names the phases run).
 
+Phases 4-6 (the CARD phases after the kernel checks, and the context
+model's parity) run in a second process (``--card-child``, its lines
+relayed here) beside phases 7-12 in this one: they are host-bound with
+a light card, the LM phases card-bound. The two processes share the card
+and the host's cores, and how far they overlap differs from run to run,
+so the times of phases 4-12 are not comparable with a run that takes the
+phases one after another (``--phases`` with the phases of one process
+alone); the kernel checks' times are taken alone.
+
 Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
   1. device   the card's name and power limit (nvidia-smi), the torch and
               CUDA versions; TF32 must be off;
@@ -232,7 +241,7 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               --checkpoint-every 3 --dedup-ckpt --fail-at 7`` as a
               subprocess (rc 0, the crash at 7, the resume from 6, 10
               steps, three ``[dedup-ckpt]`` lines with DCR >= 1; each
-              attempt's wall seconds); alongside it ``launch.train.main``
+              attempt's wall seconds); beside it ``launch.train.main``
               with the same arguments in this process, uninterrupted (step and save
               seconds, peak memory, the launches of A, B, C and D); both
               step-9 TrainStates restored onto the card must be equal bit
@@ -249,7 +258,16 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               inside the steps, equal on both; losses and grad norms
               within 1e-3 relative); one f32 step at 1 x 1,024 on the
               mesh and without it, loss and grad norm within 1e-6
-              relative. The process group is destroyed at the end.
+              relative; mamba2-130m the same (SSM mixer in shard_map);
+              and whisper-base at full size, bf16, 3 steps at 2 x 2,048
+              tokens with seeded random frames [2, 1500, 512] laid out by
+              ("batch", None, None), on the mesh and off it: losses, grad
+              norms and params equal (within 1e-3 of their largest),
+              every gradient nonzero, kernel D's launches inside the
+              steps (30 a step: the encoder's 6 once, the decoder's 6
+              causal and 6 cross twice under remat) equal on both, all on
+              the tensor cores. The process group is destroyed at the end
+              of phase 12.
   11. mesh_serve  serving on the same one-rank NCCL mesh (phases 10 and 11
               share main's ``make_host_mesh()``), params laid out in place
               by ``sharding.distribute_model``, the KV cache by
@@ -278,9 +296,34 @@ Phases, one JSON line each (phases 3b, 7 and 7b are the LM slice):
               x [4, 2048, 4096] in 4 microbatches, against
               ``reference_apply`` (8 kernel D launches in the forward, 7
               NCCL hand-offs), then one backward with every stage
-              parameter's gradient nonzero. Decode tokens/s, step and
-              first-step seconds, peak memory and the port's collectives
-              a step, on and off the mesh.
+              parameter's gradient nonzero; and the cross families served
+              the same way under decode_32k's rules at batch 4:
+              llama-3.2-vision-11b at full width and one period (5 of 40
+              layers: 4 self, 1 cross), seeded random images, and
+              whisper-base at full size, decoding from the memory its
+              encoder gives over seeded random frames (on the mesh, the
+              encoder's run on the mesh): tokens equal but at a near tie,
+              kernel D's cross launches at Tq 1 (1 and 6 a step) equal on
+              and off the mesh, all on the tensor cores. Decode tokens/s,
+              step and first-step seconds, peak memory, the port's
+              collectives a step and D's launches, on and off the mesh.
+  12. cells  the dry run and one cell at full shape: ``launch.dryrun.
+              run_cell`` over every cell of whisper-base, phi3-medium-14b
+              and jamba-v0.1-52b (10 cells) at one block period (the
+              depth cut of tests/test_torch_dryrun.py: num_layers one
+              period, at most one encoder layer), rank 0 of a fake world
+              of 256 ranks on ``meta`` tensors, in a subprocess started
+              before phase 8 (it runs beside the card-bound phases;
+              killed past 300 s), every cell ``ok``, one line a cell with its
+              argument bytes and roofline terms; then the reference's
+              whisper-base ``prefill_32k`` cell at its full shape (B 32,
+              T 32,768, seeded random frames [32, 1500, 512]) through
+              ``launch.cells.lower_cell`` on the one-rank NCCL mesh and
+              the same prefill off it (the same weights, seed 0): the
+              last logits within one bf16 rounding step of the largest,
+              18 kernel D launches in each (6 encoder, 6 causal, 6
+              cross), all on the tensor cores, seconds and peak memory
+              (under 72 GB).
 Then the nvidia-smi line, the kernels summary line, and the result line.
 Exits non-zero on any mismatch and when there is no CUDA device.
 """
@@ -311,7 +354,7 @@ import torch  # noqa: E402
 from repro_torch import checkpoint, convert, optim  # noqa: E402
 from repro_torch.api import config, faults, integrity  # noqa: E402
 from repro_torch.api.store import DedupStore, chunk_with  # noqa: E402
-from repro_torch.configs import get_config, get_shape  # noqa: E402
+from repro_torch.configs import cells as cell_list, get_config, get_shape  # noqa: E402
 from repro_torch.core import chunking, context_model, features, hashing, pipeline  # noqa: E402
 from repro_torch.data import TokenPipeline, TokenPipelineConfig, workloads  # noqa: E402
 from repro_torch.distributed import compress  # noqa: E402
@@ -336,8 +379,15 @@ MODEL = context_model.ContextModelConfig(m=64, d=50, steps=150)
 CHUNKER = chunking.ChunkerConfig(avg_size=8192)
 
 
+# the CARD phases' process (CARD_CHILD) prints through this process's
+# stdout: one line at a time
+PRINT_LOCK = threading.Lock()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    with PRINT_LOCK:
+        print(line, flush=True)
 
 
 def fail(msg: str) -> None:
@@ -2952,7 +3002,7 @@ def family_parity(dev, arch: str, gen) -> None:
                 cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
             model = make_model(nodrop, seed=5)
             model.load_state_dict(card.state_dict())
-            got = model.prefill(tokens)
+            got = model.prefill(tokens, extras)
             line.update(decode_capacity_factor=nodrop.capacity_factor)
         else:
             model = card
@@ -2961,7 +3011,7 @@ def family_parity(dev, arch: str, gen) -> None:
             step, cache = model.decode_step(tokens[:, i:i + 1], cache, extras)
         derr = float((got - step).abs().max())
         tol = CROSS_DECODE_TOL if extras else PARITY_TOL
-        line.update(prefill_vs_decode_max_abs_err=derr, decode_tol=tol)
+        line.update(prefill_vs_decode_max_abs_err=derr, decode_tol=tol, decode_tokens=length)
         if not torch.allclose(got, step, rtol=tol, atol=tol):
             fail(f"{arch}: prefill != token-by-token decode (max abs err {derr})")
         del model
@@ -3558,27 +3608,39 @@ def raw_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
+def start_supervised() -> dict:
+    """``supervised_run`` on a thread in a fresh temporary root -> its
+    record (``root``, ``worker``; the run's fields as it fills them).
+    Killed and removed at exit."""
+    import atexit
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    sup = {"rc": None, "root": root, "started": time.perf_counter()}
+    sup["worker"] = threading.Thread(target=supervised_run,
+                                     args=(os.path.join(root, "supervised"), sup))
+    sup["worker"].start()
+    atexit.register(shutil.rmtree, root, True)
+    atexit.register(stop_supervised, sup)
+    return sup
+
+
 def launch_phase(dev) -> dict[str, int]:
     """Phase 9: the supervised run (crash at 7, resume at 6, 10 steps,
-    three mirror lines, each DCR >= 1) alongside the same arguments run
-    in this process without a crash; then both step-9 TrainStates restored
-    onto the card: params, mu, nu and the steps equal bit for bit.
-    Returns the in-process run's kernel launches."""
+    three mirror lines, each DCR >= 1) beside the same arguments run in
+    this process without a crash; then both step-9 TrainStates restored
+    onto the card: params, mu, nu and the steps equal bit for bit. Returns
+    the in-process run's kernel launches."""
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    sup = start_supervised()
+    root = sup["root"]
     try:
-        # the supervised run goes alongside the in-process one (both on the
-        # card; the host's disk and cores shared)
-        sup = {"rc": None}
-        worker = threading.Thread(target=supervised_run,
-                                  args=(os.path.join(root, "supervised"), sup))
-        worker.start()
         try:
             inproc = inprocess_run(os.path.join(root, "inprocess"))
-            worker.join(LAUNCH_TIMEOUT_S)
+            sup["worker"].join(max(1.0, LAUNCH_TIMEOUT_S - (time.perf_counter()
+                                                            - sup["started"])))
         finally:
             stop_supervised(sup)
-            worker.join()
+            sup["worker"].join()
         sup_dcr = [float(m.group(1)) for m in map(DCR_LINE.match, sup["log"]) if m]
         dcr = [float(m.group(1)) for m in map(DCR_LINE.match, inproc["log"]) if m]
         steps = {name: checkpoint.list_steps(os.path.join(root, name))
@@ -3714,15 +3776,16 @@ def mesh_run(model, init: dict, batches: list, tx, mesh, rules) -> dict:
                 unmoved=still)
 
 
-def mesh_pair(cfg, rules, b: int, n: int, steps: int, mesh) -> tuple[dict, dict, dict, float]:
+def mesh_pair(cfg, rules, b: int, n: int, steps: int, mesh, extras: dict | None = None
+              ) -> tuple[dict, dict, dict, float]:
     """``steps`` AdamW steps of a fresh ``cfg`` model (seed 0) on ``mesh``
-    and off it, from the same params and token batches [b, n] -> (on, off,
-    the relative loss and grad norm differences, the largest param
-    difference)."""
+    and off it, from the same params and token batches [b, n] (each with
+    ``extras``) -> (on, off, the relative loss and grad norm differences,
+    the largest param difference)."""
     model = make_model(cfg, seed=0)
     init = train.model_params(model)     # the step is pure: both runs start here
     pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, b, n))
-    batches = [pipe.batch(i) for i in range(steps)]
+    batches = [dict(pipe.batch(i), **(extras or {})) for i in range(steps)]
     tx = optim.adamw(3e-4, weight_decay=0.1)
     on = mesh_run(model, init, batches, tx, mesh, rules)
     off = mesh_run(model, init, batches, tx, None, None)
@@ -3773,6 +3836,63 @@ def mesh_ssm(mesh, backend: str) -> None:
         del on, off
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# whisper-base at full size (97.2 M parameters): its encoder's non-causal
+# self-attention and every decoder layer's cross sublayer through kernel D
+# in shard_map, the frames laid out by ("batch", None, None); 3 bf16 steps
+# at 2 x 2,048 tokens with seeded random frames [2, 1500, 512]
+MESH_CROSS_ARCH = "whisper-base"
+
+
+def mesh_cross(mesh, backend: str) -> int:
+    """whisper-base on the mesh and off it: 3 bf16 steps at full size with
+    the same frames. Gates: finite losses, every gradient nonzero, every
+    param moved, losses and grad norms within MESH_BF16_RTOL and params
+    within MESH_BF16_RTOL of their largest value of those off the mesh,
+    kernel D's launches equal on both (18 a forward, remat doubles them),
+    all on the tensor cores. Returns D's launches on the mesh."""
+    from repro_torch.distributed import sharding
+
+    cfg = get_config(MESH_CROSS_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    frames = torch.randn(MESH_BATCH, cfg.num_audio_frames, cfg.d_model, device="cuda",
+                         generator=gen).to(torch.bfloat16)
+    rules = sharding.default_rules(cfg)
+    on, off, rel, diff = mesh_pair(cfg, rules, MESH_BATCH, MESH_LEN, MESH_STEPS, mesh,
+                                   {"frames": frames})
+    scale = max(float(v.float().abs().max()) for v in on["final"].values())
+    # remat runs each decoder block's forward twice, the encoder once
+    per_step = 2 * (kernel_d_calls(cfg)[0] - cfg.encoder_layers) + cfg.encoder_layers
+    emit("mesh", part="cross", arch=MESH_CROSS_ARCH, dtype=cfg.dtype, layers=cfg.num_layers,
+         encoder_layers=cfg.encoder_layers, params=on["params"], batch=MESH_BATCH,
+         tokens=MESH_LEN, frames=cfg.num_audio_frames, steps=MESH_STEPS, mesh=mesh.shape,
+         backend=backend, placements=on["placements"],
+         **{f"{k}_mesh": on[k] for k in ("losses", "grad_norms", "step_s", "peak_bytes",
+                                         "flash_attention", "flash_attention_sm90", "dead",
+                                         "unmoved")},
+         **{f"{k}_no_mesh": off[k] for k in ("losses", "grad_norms", "step_s", "peak_bytes",
+                                             "flash_attention")},
+         rel_diff=rel, max_param_diff=diff, param_abs_max=scale,
+         bit_equal=diff == 0 and max(max(v) for v in rel.values()) == 0)
+    if not all(np.isfinite(on["losses"] + on["grad_norms"])):
+        fail(f"mesh {MESH_CROSS_ARCH}: a loss or grad norm is not finite")
+    if on["dead"] or on["unmoved"]:
+        fail(f"mesh {MESH_CROSS_ARCH}: no gradient for {on['dead']}, not moved: {on['unmoved']}")
+    want = per_step * MESH_STEPS
+    if not (on["flash_attention"] == off["flash_attention"] == on["flash_attention_sm90"]
+            == want):
+        fail(f"mesh {MESH_CROSS_ARCH}: kernel D {on['flash_attention']} on the mesh "
+             f"({on['flash_attention_sm90']} tensor-core), {off['flash_attention']} off; "
+             f"want {want}")
+    if max(max(v) for v in rel.values()) > MESH_BF16_RTOL or diff > MESH_BF16_RTOL * scale:
+        fail(f"mesh {MESH_CROSS_ARCH}: the steps on the mesh != without it: {rel}, "
+             f"params {diff}")
+    launches = on["flash_attention"]
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def mesh_phase(dev, mesh) -> int:
@@ -3831,6 +3951,7 @@ def mesh_phase(dev, mesh) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     mesh_ssm(mesh, backend)
+    total += mesh_cross(mesh, backend)
     emit("mesh", part="summary", flash_attention_launches=total,
          phase_s=time.perf_counter() - t0)
     return total
@@ -3896,13 +4017,15 @@ def port_collectives():
     return counts, lambda: [setattr(tdist, n, f) for n, f in real.items()]
 
 
-def recorded_serve(model, prompts, keep_logits: bool, mesh=None, rules=None) -> dict:
+def recorded_serve(model, prompts, keep_logits: bool, mesh=None, rules=None,
+                   extras: dict | None = None) -> dict:
     """``serve.serve_loop`` (inside ``use_rules(rules, mesh)`` when ``mesh``
-    is given), with every step's logits recorded: whole in f32 where
-    ``keep_logits``, else the top two of each row. Returns the tokens,
-    the loop's seconds, the first step's seconds, peak memory, the port's
-    collectives a step, and whether every step's logits came back a
-    DTensor (a step that ran on the mesh)."""
+    is given; ``extras`` to every step), with every step's logits
+    recorded: whole in f32 where ``keep_logits``, else the top two of each
+    row. Returns the tokens, the loop's seconds, the first step's seconds,
+    peak memory, the port's collectives a step, kernel D's launches, and
+    whether every step's logits came back a DTensor (a step that ran on
+    the mesh)."""
     from repro_torch.distributed import sharding
 
     rec, first, laid = [], [], []
@@ -3924,19 +4047,21 @@ def recorded_serve(model, prompts, keep_logits: bool, mesh=None, rules=None) -> 
     torch.cuda.reset_peak_memory_stats()
     model.decode_step = step
     counts, restore = port_collectives()
+    ops.reset_launches()
     try:
         with scope:
-            out, prefill_s, decode_s = serve.serve_loop(model, prompts, MS_GEN)
+            out, prefill_s, decode_s = serve.serve_loop(model, prompts, MS_GEN, extras=extras)
     finally:
         restore()
         del model.decode_step
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_attention", "flash_attention_sm90")}
     steps = MS_PROMPT + MS_GEN
     return dict(tokens=out, logits=torch.stack(rec), prefill_s=prefill_s, decode_s=decode_s,
                 first_step_s=first[0], step_s=decode_s / MS_GEN,
                 decode_tokens_per_s=out.shape[0] * MS_GEN / decode_s,
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 collectives_per_step={k: v / steps for k, v in counts.items()},
-                on_mesh=all(laid))
+                on_mesh=all(laid), launches=launches)
 
 
 def bf16_step(x: torch.Tensor) -> torch.Tensor:
@@ -4143,6 +4268,74 @@ def mesh_serve_ssm(dev, mesh, gen) -> None:
         torch.cuda.empty_cache()
 
 
+# llama-3.2-vision-11b at full width and one period (5 of its 40 layers: 4
+# self-attention, 1 cross over the images) and whisper-base at full size,
+# bf16, served as granite is under decode_32k's rules with seeded random
+# images, or with the memory the encoder gives from seeded random frames
+MS_CROSS = {"llama-3.2-vision-11b": 5, "whisper-base": 6}
+
+
+def mesh_serve_cross(dev, mesh, gen) -> int:
+    """(d): the VLM (one period) and whisper-base served on and off the
+    mesh under decode_32k's rules; whisper's memory from its encoder run on
+    the mesh (and off it for the serve off it). Gates: every mesh step ran
+    on the mesh, tokens equal but at a near tie, kernel D's cross
+    launches at Tq 1 (one a cross sublayer a step) equal on both, all on
+    the tensor cores. Returns D's launches (the encoder runs included)."""
+    from repro_torch.distributed import sharding
+
+    total = 0
+    for arch, layers in MS_CROSS.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        rules, b = serve_layouts(cfg)["decode_32k"]
+        model = make_model(cfg, seed=0)
+        prompts = torch.randint(0, cfg.vocab_size, (b, MS_PROMPT), device=dev, generator=gen)
+        ex = cross_extras(cfg, b, dev, gen, torch.bfloat16)
+        ops.reset_launches()
+        with torch.no_grad():
+            off_extras = {"memory": model.encode_audio(ex["frames"])} if "frames" in ex else ex
+        enc_off = ops.LAUNCHES["flash_attention"]
+        off = recorded_serve(model, prompts, False, extras=off_extras)
+        sharding.distribute_model(model, mesh, rules)
+        ops.reset_launches()
+        with sharding.use_rules(rules, mesh), torch.no_grad():
+            on_extras = {"memory": model.encode_audio(ex["frames"])} if "frames" in ex else ex
+        enc_on = ops.LAUNCHES["flash_attention"]
+        on = recorded_serve(model, prompts, False, mesh, rules, extras=on_extras)
+        ties = near_tie_check(arch, on, off)
+        cross_per_step = kernel_d_calls(cfg)[1]
+        want = cross_per_step * (MS_PROMPT + MS_GEN)
+        emit("mesh_serve", part="cross", arch=arch, family=cfg.family, layers=cfg.num_layers,
+             full_layers=full.num_layers, dtype=cfg.dtype, batch=b, prompt=MS_PROMPT,
+             gen=MS_GEN, extras={k: list(v.shape) for k, v in ex.items()},
+             memory_from_encoder_on_mesh=isinstance(on_extras.get("memory"),
+                                                    sharding.DTensor),
+             encoder_launches_mesh=enc_on, encoder_launches_no_mesh=enc_off,
+             near_ties=ties, tokens_equal=bool(np.array_equal(on["tokens"], off["tokens"])),
+             first_tokens=on["tokens"][:, :8].tolist(), cross_launches_per_step=cross_per_step,
+             **{f"{k}_mesh": on[k] for k in ("prefill_s", "decode_s", "step_s", "first_step_s",
+                                             "decode_tokens_per_s", "peak_bytes",
+                                             "collectives_per_step", "on_mesh", "launches")},
+             **{f"{k}_no_mesh": off[k] for k in ("prefill_s", "decode_s", "step_s",
+                                                 "decode_tokens_per_s", "peak_bytes",
+                                                 "on_mesh", "launches")})
+        if not on["on_mesh"] or off["on_mesh"]:
+            fail(f"mesh_serve {arch}: the mesh serve ran off the mesh, or the plain one on it")
+        for name, got in (("on", on["launches"]), ("off", off["launches"])):
+            if got != dict(flash_attention=want, flash_attention_sm90=want):
+                fail(f"mesh_serve {arch}: kernel D {got} in the serve {name} the mesh; want "
+                     f"{want} at Tq 1, all on the tensor cores")
+        if enc_on != enc_off or enc_on != cfg.encoder_layers:
+            fail(f"mesh_serve {arch}: the encoder launched D {enc_on} times on the mesh, "
+                 f"{enc_off} off it; want {cfg.encoder_layers}")
+        total += on["launches"]["flash_attention"] + enc_on
+        del model, on, off, on_extras, off_extras
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def mesh_serve_pipeline(dev, gen) -> int:
     """(c): ``pipeline_apply`` over a one-rank "pod" axis, each stage 2
     granite-8b blocks, against ``reference_apply``, then one backward;
@@ -4224,90 +4417,192 @@ def mesh_serve_phase(dev, mesh) -> int:
     launches = mesh_serve_granite(dev, mesh, gen)
     mesh_serve_moe(dev, mesh, gen)
     mesh_serve_ssm(dev, mesh, gen)
+    launches += mesh_serve_cross(dev, mesh, gen)
     launches += mesh_serve_pipeline(dev, gen)
     emit("mesh_serve", part="summary", flash_attention_launches=launches,
          phase_s=time.perf_counter() - t0)
     return launches
 
 
-# the phases a run may pick (``--phases``); every one runs by default
-PHASES = ("kernel", "main", "baselines", "backends", "lifecycle", "serve", "features",
-          "checkpoint", "parity", "lm", "lm_families", "train", "launch", "mesh", "mesh_serve")
-# the phases that read the card's dedup workloads
-CARD_PHASES = PHASES[:8]
+# --- phase 12: the dry-run cells, and one cell at its full shape ---------------
+
+# the dry run of every cell of these archs (10 cells) at one block period
+# (num_layers one period, at most one encoder layer: the depth cut of
+# tests/test_torch_dryrun.py), each rank-0 step on ``meta`` over a fake
+# world of 256 ranks, in a subprocess with a deadline
+CELL_ARCHS = ("whisper-base", "phi3-medium-14b", "jamba-v0.1-52b")
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_SCRIPT = """
+import dataclasses, json, logging, sys, tempfile, warnings
+from pathlib import Path
+warnings.filterwarnings("ignore")
+logging.disable(logging.WARNING)
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs import base
+from repro_torch.launch import dryrun
+from repro_torch.models.transformer import block_period
+
+real = base.get_config
+base.get_config = lambda arch: dataclasses.replace(
+    real(arch), num_layers=block_period(real(arch)),
+    encoder_layers=min(real(arch).encoder_layers, 1))
+out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+for arch in sys.argv[1].split(","):
+    for shape in base.cells(arch):
+        r = dryrun.run_cell(arch, shape.name, multi_pod=False, out_dir=out, verbose=False)
+        r.pop("traceback", None)
+        print(json.dumps(r), flush=True)
+"""
+# the reference's prefill_32k cell of whisper-base at its full shape: B 32,
+# T 32,768, frames [32, 1500, 512], through ``cells.lower_cell`` on the
+# one-rank NCCL mesh and the same prefill off it
+CELL_ARCH, CELL_SHAPE = "whisper-base", "prefill_32k"
 
 
-def parse_phases(argv: list[str]) -> tuple[str, ...]:
-    """``--phases name,name`` -> the phases to run, in PHASES order (device
-    and build always run); no argument -> all of them."""
-    import argparse
+def start_dryrun() -> subprocess.Popen:
+    """``dryrun.run_cell`` over CELL_ARCHS' cells in a subprocess, started
+    before phase train so that its host work runs beside the card's;
+    killed past DRYRUN_TIMEOUT_S or at exit."""
+    import atexit
 
-    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)}")
-    names = [n for n in ap.parse_args(argv).phases.split(",") if n]
-    unknown = sorted(set(names) - set(PHASES))
-    if unknown or not names:
-        ap.error(f"unknown phases {unknown}; pick from {', '.join(PHASES)}")
-    return tuple(n for n in PHASES if n in names)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT, ",".join(CELL_ARCHS)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=ROOT, env=env)
+    proc.started = time.perf_counter()
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc
 
 
-def main(argv: list[str] | None = None) -> int:
-    phases = parse_phases(sys.argv[1:] if argv is None else argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", torch.cuda.current_device())
+def finish_dryrun(proc: subprocess.Popen) -> list[dict]:
+    """The dry run's records, one a cell (its deadline counted from its
+    start)."""
+    left = DRYRUN_TIMEOUT_S - (time.perf_counter() - proc.started)
+    try:
+        out, err = proc.communicate(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"cells: the dry run passed its {DRYRUN_TIMEOUT_S} s deadline")
+    if proc.returncode != 0:
+        fail(f"cells: the dry run exited {proc.returncode}: {err[-2000:]}")
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
 
-    smi = nvidia_smi()
-    if torch.backends.cuda.matmul.allow_tf32:
-        fail("TF32 matmul is enabled")
-    emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(dev),
-         count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-         phases=list(phases))
+
+def cells_phase(dev, mesh, dry: subprocess.Popen) -> int:
+    """Phase 12 (see the module docstring), with the dry run ``dry`` that
+    main started; returns kernel D's launches in the full-shape cell on
+    and off the mesh."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import cells
 
     t0 = time.perf_counter()
-    _build.lib()
-    build_s = time.perf_counter() - t0
-    log = _build.build_info.get("ptxas", "")
-    sass = sass_counts(_build.build_info["path"])
-    emit("build", seconds=build_s, cached=_build.build_info["cached"],
-         path=_build.build_info["path"], ptxas=ptxas_summary(log),
-         ptxas_warnings=[ln.strip() for ln in log.splitlines() if "C7512" in ln],
-         flash_sass={k: v for k, v in sass.items() if "flash_attn" in k},
-         topk_sass={k: v for k, v in sass.items() if "sim_topk" in k})
-    hgmma = [c["HGMMA"] for name, c in sass.items() if "sm90" in name]
-    if not hgmma or min(hgmma) == 0:
-        fail(f"the tensor-core flash kernel holds no HGMMA: {sass}")
+    recs = finish_dryrun(dry)
+    dry_s = time.perf_counter() - dry.started
+    for r in recs:
+        roof = r.get("roofline", {})
+        emit("cells", part="dryrun", arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+             chips=r["chips"], ok=r["ok"], error=r.get("error"), lower_s=r.get("lower_s"),
+             trace_s=r.get("trace_s"), memory=r.get("memory"),
+             **{k: roof.get(k) for k in ("flops_per_chip", "coll_bytes_per_chip",
+                                         "model_flops_global", "t_compute_s", "t_memory_s",
+                                         "t_collective_s", "dominant", "roofline_fraction")})
+    want = sum(len(cell_list(a)) for a in CELL_ARCHS)
+    bad = [f"{r['arch']}.{r['shape']}: {r.get('error')}" for r in recs if not r["ok"]]
+    if len(recs) != want or bad:
+        fail(f"cells: {len(recs)} of {want} cells dry-ran, failures {bad}")
 
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    lowered, meta = cells.lower_cell(CELL_ARCH, CELL_SHAPE, mesh)
+    build_s = time.perf_counter() - t1
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    on = lowered.step()
+    torch.cuda.synchronize()
+    on_s = time.perf_counter() - t1
+    on_launches = {k: ops.LAUNCHES[k] for k in ("flash_attention", "flash_attention_sm90")}
+    on = (on.full_tensor() if isinstance(on, sharding.DTensor) else on).float()
+    on_peak = torch.cuda.max_memory_allocated()
+    inputs = lowered.inputs
+    del lowered
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_model(get_config(CELL_ARCH), seed=0)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    off = model.prefill(inputs["tokens"], {"frames": inputs["frames"]}).float()
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t1
+    off_launches = {k: ops.LAUNCHES[k] for k in ("flash_attention", "flash_attention_sm90")}
+    off_peak = torch.cuda.max_memory_allocated()
+    err = float((on - off).abs().max())
+    step = float(bf16_step(off.abs().max()))
+    shape = get_shape(CELL_SHAPE)
+    emit("cells", part="full_cell", arch=CELL_ARCH, shape=CELL_SHAPE, kind=meta.kind,
+         batch=shape.global_batch, tokens=shape.seq_len,
+         inputs={k: list(v.shape) for k, v in inputs.items()}, mesh=mesh.shape,
+         rules_batch=meta.rules.batch, build_s=build_s, prefill_s_mesh=on_s,
+         prefill_s_no_mesh=off_s, tokens_per_s_mesh=shape.global_batch * shape.seq_len / on_s,
+         tokens_per_s_no_mesh=shape.global_batch * shape.seq_len / off_s,
+         peak_bytes_mesh=on_peak, peak_bytes_no_mesh=off_peak, launches_mesh=on_launches,
+         launches_no_mesh=off_launches, max_abs_diff=err, logits_abs_max=float(off.abs().max()),
+         bf16_step=step, bit_equal=bool(torch.equal(on, off)), dryrun_wall_s=dry_s,
+         phase_s=time.perf_counter() - t0)
+    want_d = dict(flash_attention=18, flash_attention_sm90=18)
+    if on_launches != want_d or off_launches != want_d:
+        fail(f"cells {CELL_ARCH} {CELL_SHAPE}: kernel D {on_launches} on the mesh, "
+             f"{off_launches} off it; want 18 each (6 encoder, 6 causal, 6 cross), all on "
+             "the tensor cores")
+    if not bool(torch.isfinite(on).all()) or err > step:
+        fail(f"cells {CELL_ARCH} {CELL_SHAPE}: the last logits differ by {err} on the mesh "
+             f"(one bf16 step of the largest: {step})")
+    if max(on_peak, off_peak) >= 72e9:
+        fail(f"cells {CELL_ARCH} {CELL_SHAPE}: peak {on_peak} / {off_peak} bytes")
+    del model, on, off, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return on_launches["flash_attention"] + off_launches["flash_attention"]
+
+
+# the phases a run may pick (``--phases``); every one runs by default
+PHASES = ("kernel", "main", "baselines", "backends", "lifecycle", "serve", "features",
+          "checkpoint", "parity", "lm", "lm_families", "train", "launch", "mesh", "mesh_serve",
+          "cells")
+
+
+# the phases that run in a process of their own: the CARD phases
+# after the kernel checks, and phase parity. They are host-bound with a
+# light card; the LM phases, card-bound, run beside them in this process,
+# after the kernel checks (whose timings nothing shares)
+CHILD_PHASES = PHASES[1:9]
+CHILD_FLAG = "--card-child"
+CHILD_RESULT = "chip_smoke card phases: "
+
+
+def card_workloads() -> dict[str, list[bytes]]:
+    return {name: workloads.make_workload(
+        name, workloads.WorkloadConfig(base_size=BASE, versions=VERSIONS))
+        for name in ("sql_dump", "vmdk")}
+
+
+def card_child(dev, phases: tuple[str, ...]) -> int:
+    """The CARD phases of ``phases`` in this process (the child that
+    ``start_card_child`` starts): their JSON lines, then one CHILD_RESULT
+    line with their kernel launches and the packed gear route's row."""
+    _build.lib()
     launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0, "rabin": 0,
-                "flash_attention": 0}
-    rows = []
-    if set(phases) & set(CARD_PHASES):
-        main_versions = {name: workloads.make_workload(
-            name, workloads.WorkloadConfig(base_size=BASE, versions=VERSIONS))
-            for name in ("sql_dump", "vmdk")}
-    if "kernel" in phases:
-        # the main path scans each stream at its length rounded up to 128
-        # (kernels/ingest.scan_length); before, at its pow2 bucket (64 MiB)
-        scan_n = max(ingest.scan_length(len(v)) for versions in main_versions.values()
-                     for v in versions)
-        bucket_n = max(features.bucket_pow2(len(v)) for versions in main_versions.values()
-                       for v in versions)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        rabin = check_rabin(dev, main_versions["sql_dump"][1])
-        rows = [check_gear(dev, sorted({1, 31, 33, 100, 8193, BASE, scan_n, bucket_n}), gen,
-                           scan_n, bucket_n),
-                check_embed(dev, gen, real_extract(dev, main_versions["sql_dump"][1])),
-                check_topk(dev, gen, BIG_N),
-                check_attn(dev, gen, PREFILL_LEN)]
-        rows[0]["rabin_packed"] = rabin
+                "gear_packed": 0}
 
     def add(counts: dict) -> None:
         for k, v in counts.items():
-            launches[k] += v
+            launches[k] = launches.get(k, 0) + v
 
+    main_versions = card_workloads() if set(phases) & set(CHILD_PHASES[:-1]) else None
     if "main" in phases:
         for name, versions in main_versions.items():
             add(main_path(name, versions))
@@ -4333,22 +4628,139 @@ def main(argv: list[str] | None = None) -> int:
         small = workloads.make_workload(
             "kernel", workloads.WorkloadConfig(base_size=1 << 20, versions=3))
         parity_phase(*fit_phase(small), small)
-        del small
-    main_versions = None
-    gc.collect()
-    torch.cuda.empty_cache()
+    print(CHILD_RESULT + json.dumps({"launches": launches, "gear_packed": gear_packed}),
+          flush=True)
+    return 0
+
+
+def start_card_child(phases: list[str]) -> dict:
+    """``chip_smoke.py --card-child --phases ...`` as a subprocess beside
+    this process's LM phases (both on the card; the host's cores shared),
+    its lines relayed to this stdout as they come; killed at exit."""
+    import atexit
+
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), CHILD_FLAG,
+                             "--phases", ",".join(phases)], stdout=subprocess.PIPE,
+                            text=True, cwd=ROOT)
+    child = {"proc": proc, "result": None}
+
+    def relay():
+        for line in proc.stdout:
+            if line.startswith(CHILD_RESULT):
+                child["result"] = json.loads(line[len(CHILD_RESULT):])
+                continue
+            with PRINT_LOCK:
+                print(line, end="", flush=True)
+
+    child["relay"] = threading.Thread(target=relay, daemon=True)
+    child["relay"].start()
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return child
+
+
+def finish_card_child(child: dict) -> tuple[dict, dict | None]:
+    """Wait for the CARD phases' process -> (their kernel launches, the
+    packed gear route's row); its failure fails the run."""
+    rc = child["proc"].wait()
+    child["relay"].join()
+    if rc != 0 or child["result"] is None:
+        fail(f"the CARD phases' process exited {rc}")
+    return child["result"]["launches"], child["result"]["gear_packed"]
+
+
+def parse_phases(argv: list[str]) -> tuple[tuple[str, ...], bool]:
+    """``--phases name,name`` -> (the phases to run, in PHASES order (device
+    and build always run; no argument: all of them), whether this is the
+    CARD phases' process)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    names = [n for n in args.phases.split(",") if n]
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown or not names:
+        ap.error(f"unknown phases {unknown}; pick from {', '.join(PHASES)}")
+    return tuple(n for n in PHASES if n in names), args.card_child
+
+
+def main(argv: list[str] | None = None) -> int:
+    phases, child = parse_phases(sys.argv[1:] if argv is None else argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if child:
+        return card_child(dev, phases)
+
+    smi = nvidia_smi()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmul is enabled")
+    emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(dev),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         phases=list(phases))
+
+    t0 = time.perf_counter()
+    _build.lib()
+    build_s = time.perf_counter() - t0
+    log = _build.build_info.get("ptxas", "")
+    sass = sass_counts(_build.build_info["path"])
+    emit("build", seconds=build_s, cached=_build.build_info["cached"],
+         path=_build.build_info["path"], ptxas=ptxas_summary(log),
+         ptxas_warnings=[ln.strip() for ln in log.splitlines() if "C7512" in ln],
+         flash_sass={k: v for k, v in sass.items() if "flash_attn" in k},
+         topk_sass={k: v for k, v in sass.items() if "sim_topk" in k})
+    hgmma = [c["HGMMA"] for name, c in sass.items() if "sm90" in name]
+    if not hgmma or min(hgmma) == 0:
+        fail(f"the tensor-core flash kernel holds no HGMMA: {sass}")
+
+    launches = {"gear_scan": 0, "shingle_embed": 0, "sim_topk": 0, "rabin": 0,
+                "flash_attention": 0, "gear_packed": 0}
+    rows = []
+    if "kernel" in phases:
+        main_versions = card_workloads()
+        # the main path scans each stream at its length rounded up to 128
+        # (kernels/ingest.scan_length); before, at its pow2 bucket (64 MiB)
+        scan_n = max(ingest.scan_length(len(v)) for versions in main_versions.values()
+                     for v in versions)
+        bucket_n = max(features.bucket_pow2(len(v)) for versions in main_versions.values()
+                       for v in versions)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rabin = check_rabin(dev, main_versions["sql_dump"][1])
+        rows = [check_gear(dev, sorted({1, 31, 33, 100, 8193, BASE, scan_n, bucket_n}), gen,
+                           scan_n, bucket_n),
+                check_embed(dev, gen, real_extract(dev, main_versions["sql_dump"][1])),
+                check_topk(dev, gen, BIG_N),
+                check_attn(dev, gen, PREFILL_LEN)]
+        rows[0]["rabin_packed"] = rabin
+        del main_versions
+        gc.collect()
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            launches[k] += v
+
+    child_phases = [p for p in phases if p in CHILD_PHASES]
+    child = start_card_child(child_phases) if child_phases else None
     if "lm" in phases:
         launches["flash_attention"] += lm_phase(dev)
     if "lm_families" in phases:
         launches["flash_attention"] += lm_families_phase(dev)
+    if "cells" in phases:
+        # the dry run's host work goes beside the card-bound train steps,
+        # not beside the host-bound CARD phases
+        dry = start_dryrun()
     train_row = None
     if "train" in phases:
         train_launches, train_row = train_phase(dev)
         launches["flash_attention"] += train_launches
     if "launch" in phases:
         add(launch_phase(dev))
-    mesh_launches = mesh_serve_launches = 0
-    if "mesh" in phases or "mesh_serve" in phases:
+    mesh_launches = mesh_serve_launches = cells_launches = 0
+    if {"mesh", "mesh_serve", "cells"} & set(phases):
         import torch.distributed as tdist
 
         from repro_torch.launch import mesh as launch_mesh
@@ -4358,9 +4770,15 @@ def main(argv: list[str] | None = None) -> int:
                 mesh_launches = mesh_phase(dev, mesh)
             if "mesh_serve" in phases:
                 mesh_serve_launches = mesh_serve_phase(dev, mesh)
+            if "cells" in phases:
+                cells_launches = cells_phase(dev, mesh, dry)
         finally:
             tdist.destroy_process_group()
-    launches["flash_attention"] += mesh_launches + mesh_serve_launches
+    launches["flash_attention"] += mesh_launches + mesh_serve_launches + cells_launches
+    gear_packed = None
+    if child is not None:
+        counts, gear_packed = finish_card_child(child)
+        add(counts)
 
     print(smi, flush=True)
     if phases == PHASES:
@@ -4377,6 +4795,7 @@ def main(argv: list[str] | None = None) -> int:
         rows[3]["train_row"] = train_row
         rows[3]["mesh_launches"] = mesh_launches
         rows[3]["mesh_serve_launches"] = mesh_serve_launches
+        rows[3]["cells_launches"] = cells_launches
         print(json.dumps({"kernels": rows}), flush=True)
     last = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}

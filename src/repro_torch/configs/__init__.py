@@ -5,6 +5,7 @@ from repro_torch.configs.base import (  # noqa: F401
     LM_SHAPES,
     InputShape,
     ModelConfig,
+    cells,
     get_config,
     get_shape,
 )

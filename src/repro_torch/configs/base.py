@@ -182,3 +182,11 @@ def get_shape(name: str) -> InputShape:
         if s.name == name:
             return s
     raise KeyError(f"unknown shape {name!r}")
+
+
+def cells(arch: str) -> list[InputShape]:
+    """The dry-run cells of one architecture: every shape of ``LM_SHAPES``
+    but ``long_500k`` where the arch is pure full attention (the
+    reference's rule)."""
+    cfg = get_config(arch)
+    return [s for s in LM_SHAPES if s.name != "long_500k" or cfg.supports_long_context]

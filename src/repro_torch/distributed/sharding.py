@@ -194,11 +194,32 @@ def placements(spec: P, mesh) -> tuple:
     return tuple(out)
 
 
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``want``, and its gradient too: GSPMD's
+    sharding constraint binds the cotangent as well. Without it a partial
+    sum that a product over "model" leaves in the gradient flows on into
+    the next product, which DTensor then runs whole on every "model" rank
+    (the weight gathered, the partial sum kept)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
+
+
 def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """``with_sharding_constraint`` by logical names: a DTensor is
-    redistributed to the spec's placements inside ``use_rules(rules,
-    mesh)`` (a dim of size 1 kept whole); anything else, or outside, comes
-    back as it is."""
+    """``with_sharding_constraint`` by logical names: a DTensor, and its
+    gradient, is redistributed to the spec's placements inside
+    ``use_rules(rules, mesh)`` (a dim of size 1 kept whole); anything
+    else, or outside, comes back as it is."""
     rules, mesh = _ACTIVE.get(), _ACTIVE_MESH.get()
     if rules is None or mesh is None or not isinstance(x, DTensor):
         return x
@@ -207,9 +228,9 @@ def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     # even over a one-rank axis (torch 2.13)
     spec = activation_spec(*logical, rules=rules)
     want = placements(P(*(None if n == 1 else e for e, n in zip(spec, x.shape))), mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(mesh.device_mesh, want)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x if tuple(x.placements) == want else x.redistribute(mesh.device_mesh, want)
+    return _Constrain.apply(x, want)
 
 
 def as_global(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
@@ -233,6 +254,84 @@ def unshard(x: torch.Tensor, dim: int) -> torch.Tensor:
     want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
                  for p in x.placements)
     return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+def _dims_to_gather(src: tuple, dst: tuple, shards: dict, strided: set) -> set:
+    """The dims of a tensor of shape ``src``, split over ``shards[d]`` ranks
+    along dim d (``strided``: the dims a strided shard covers), that
+    DTensor cannot carry through a reshape to ``dst``: the first dim of a
+    group of dims that the reshape merges, when its shards do not divide
+    it, or splits, when they do not divide the first dim it splits into; a
+    later dim of a merged group (torch 2.11 will not flatten it; 2.13
+    keeps it as a strided shard); a sharded dim of one element, even over
+    one rank (torch 2.13 will not view it); a dim a strided shard covers.
+    A dim that the reshape keeps as it is stays split, evenly or not."""
+    first, merged = {}, set()
+    i, j = 0, 0
+    while i < len(src) and j < len(dst):
+        i0, j0, a, b = i, j, src[i], dst[j]
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b and i < len(src):
+                a, i = a * src[i], i + 1
+            elif b < a and j < len(dst):
+                b, j = b * dst[j], j + 1
+            else:
+                break
+        if i - i0 == 1 and j - j0 > 1:
+            first[i0] = dst[j0]
+        elif i - i0 > 1:
+            first[i0] = src[i0]
+        merged.update(d for d in range(i0 + 1, i) if src[d] > 1)
+    return set(strided) | {d for d, n in shards.items()
+                           if d in merged or src[d] == 1 or first.get(d, n) % n}
+
+
+def _whole_where_uneven(x: DTensor, src: tuple, dst: tuple) -> DTensor:
+    """``x`` (of shape ``src``, about to be reshaped to ``dst``) with each
+    dim that ``_dims_to_gather`` names gathered whole, its other
+    placements kept."""
+    shards, strided = {}, set()
+    for n, p in zip(x.device_mesh.shape, x.placements):
+        d = getattr(p, "dim", None)
+        if d is None:
+            continue
+        d %= x.dim()
+        shards[d] = shards.get(d, 1) * n
+        if not isinstance(p, Shard):          # a strided shard
+            strided.add(d)
+    gather = _dims_to_gather(src, dst, shards, strided)
+    if not gather:
+        return x
+    want = tuple(Replicate() if getattr(p, "dim", None) is not None
+                 and p.dim % x.dim() in gather else p for p in x.placements)
+    return x.redistribute(x.device_mesh, want)
+
+
+def _even_reshape(x: DTensor, shape: tuple) -> DTensor:
+    return _whole_where_uneven(x, tuple(x.shape), shape).reshape(shape)
+
+
+class _EvenReshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _even_reshape(x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _even_reshape(g, ctx.shape), None
+
+
+def reshape(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x.reshape(shape)``. A DTensor dim that the reshape merges or
+    splits and whose shards do not divide it (q or kv heads that "model"
+    does not divide; GSPMD pads them) is gathered whole first, in the
+    forward and in the backward: DTensor cannot flatten or unflatten such
+    a dim."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    return _EvenReshape.apply(x, tuple(int(n) for n in shape))
 
 
 # ---------------------------------------------------------------------------
@@ -414,17 +513,25 @@ def distribute_cache(cache: Any, mesh, rules: ShardingRules) -> Any:
     """A KV / SSM cache tree of (``meta``) tensors -> DTensors of zeros with
     the same shapes and dtypes, laid out by ``sanitize_pspecs(cache_pspecs(
     ...))`` on ``mesh`` (``cells.input_specs`` / ``lower_cell``'s cache
-    shardings); each rank allocates its own shards alone. Leaves that are
-    not tensors come back as they are."""
+    shardings); each rank allocates its own shards alone, and on a ``meta``
+    mesh (the dry run) nothing: each local block is a ``meta`` tensor of
+    its local shape. Leaves that are not tensors come back as they are."""
     from torch.distributed.tensor import zeros
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     specs = sanitize_pspecs(cache, cache_pspecs(cache, rules), mesh)
+    dm = mesh.device_mesh
 
     def make(_, leaf, spec):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return zeros(tuple(leaf.shape), dtype=leaf.dtype, device_mesh=mesh.device_mesh,
-                     placements=placements(spec, mesh))
+        shape, pl = tuple(leaf.shape), placements(spec, mesh)
+        if mesh.device_type == "meta":
+            local, _ = compute_local_shape_and_global_offset(shape, dm, pl)
+            return DTensor.from_local(torch.zeros(local, dtype=leaf.dtype, device="meta"), dm,
+                                      pl, run_check=False, shape=torch.Size(shape),
+                                      stride=torch.empty(shape, device="meta").stride())
+        return zeros(shape, dtype=leaf.dtype, device_mesh=dm, placements=pl)
     return _map_named(make, cache, specs)
 
 

@@ -7,6 +7,12 @@ tensor launches the kernel, and a build or launch failure raises — there
 is no fallback. Each wrapper counts its launches in ``LAUNCHES`` (plain
 integers, incremented only where a kernel is launched), so a run can
 show that its main path went through the kernels.
+
+``flash_attention`` also takes ``meta`` tensors (the dry run's shapes):
+it returns its output's shape and dtype, computes nothing, launches
+nothing, and adds the attention's FLOPs, the reference's ``_attn_flops``
+rule, to ``META_FLOPS``. A mix of ``meta`` with CPU or CUDA tensors
+raises.
 """
 from __future__ import annotations
 
@@ -25,6 +31,11 @@ LAUNCHES: dict[str, int] = {
 }
 
 
+# the FLOPs that kernel D's meta route stood for: 4 H hd Tq Tk a sequence,
+# halved when causal (``repro/distributed/roofline.py``'s ``_attn_flops``)
+META_FLOPS: dict[str, float] = {"flash_attention": 0.0}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -41,6 +52,14 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    """True for ``meta`` tensors alone; a mix with other devices raises."""
+    kinds = {t.device.type for t in tensors}
+    if "meta" in kinds and kinds != {"meta"}:
+        raise ValueError(f"meta tensors mixed with {kinds - {'meta'}}")
+    return kinds == {"meta"}
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -183,7 +202,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.numel() == 0 or h % k.shape[2] != 0):
         raise ValueError(f"bad shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} (want H % KV == 0, none empty)")
-    if _on_cuda(q, k, v) and hd > _fa.MAX_HD:
+    if not _on_meta(q, k, v) and _on_cuda(q, k, v) and hd > _fa.MAX_HD:
         raise ValueError(f"hd = {hd} exceeds the kernel's {_fa.MAX_HD}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal)
@@ -193,7 +212,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool) -> torch.Tensor:
     """The dispatch of checked inputs: the plain version for CPU tensors,
-    kernel D by its route for CUDA ones."""
+    kernel D by its route for CUDA ones, the output's shape alone for
+    ``meta`` ones (its FLOPs counted in ``META_FLOPS``)."""
+    if _on_meta(q, k, v):
+        b, tq, h, hd = q.shape
+        META_FLOPS["flash_attention"] += (4.0 * b * h * hd * tq * k.shape[1]
+                                          * (0.5 if causal else 1.0))
+        return torch.empty_like(q)
     if not _on_cuda(q, k, v):
         out = _fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                         v.transpose(1, 2), causal)

@@ -10,10 +10,13 @@ Mesh layout (the reference's production meshes, 256 ranks a pod):
 The port's ``Mesh`` holds a ``torch.distributed.device_mesh.DeviceMesh``
 and reads as the reference's does: ``mesh.shape`` is an ordered mapping
 axis name -> size (``mesh.shape["model"]``) and ``mesh.axis_names`` the
-names in mesh order. A mesh on CUDA runs NCCL, one on the CPU gloo; the
-backend follows the device the caller asks for and never changes on its
-own. Where no process group exists, ``make_mesh`` starts one of a single
-rank; a multi-rank group is the caller's (``torch.distributed.
+names in mesh order. A mesh on CUDA runs NCCL, one on the CPU gloo, and
+one on ``meta`` (the dry run's shapes, nothing allocated) lays DTensors
+out over an existing world of torch's ``fake`` backend, which the caller
+starts (``launch.dryrun.fake_world``); the backend follows the device
+the caller asks for and never changes on its own. Where no process group
+exists, ``make_mesh`` starts one of a single rank (never a fake one); a
+multi-rank group is the caller's (``torch.distributed.
 init_process_group`` with its address, world size and rank). Every group
 made here times out after ``TIMEOUT``, so a rank that fails leaves the
 others an error, not a hang.
@@ -36,14 +39,14 @@ class Mesh:
     """A named device mesh: ``device_mesh`` (torch's), ``axis_names`` and
     ``shape`` (``{name: size}`` in mesh order)."""
 
-    def __init__(self, device_mesh: DeviceMesh, axis_names: tuple[str, ...]):
+    def __init__(self, device_mesh: DeviceMesh, axis_names: tuple[str, ...],
+                 device_type: str | None = None):
         self.device_mesh = device_mesh
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, device_mesh.shape))
-
-    @property
-    def device_type(self) -> str:
-        return self.device_mesh.device_type
+        # a meta mesh's DeviceMesh is a "cpu" one: DTensor's dispatch asks
+        # the mesh's device module, which "meta" has not
+        self.device_type = device_type or device_mesh.device_type
 
     def get_group(self, axis: str) -> dist.ProcessGroup:
         return self.device_mesh.get_group(axis)
@@ -57,7 +60,7 @@ class Mesh:
 
 
 def _backend(device_type: str) -> str:
-    return "nccl" if device_type == "cuda" else "gloo"
+    return {"cuda": "nccl", "meta": "fake"}.get(device_type, "gloo")
 
 
 def _device_type(device) -> str:
@@ -72,6 +75,9 @@ def _ensure_group(device_type: str) -> None:
     exists; an existing group must be of this backend."""
     backend = _backend(device_type)
     if not dist.is_initialized():
+        if device_type == "meta":
+            raise RuntimeError("a meta mesh needs a fake world: start one first "
+                               "(launch.dryrun.fake_world)")
         if device_type == "cuda":
             torch.cuda.set_device(0)
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
@@ -87,8 +93,9 @@ def _ensure_group(device_type: str) -> None:
 def make_mesh(shape, axes, *, device=None) -> Mesh:
     """A mesh of ``shape`` over the ranks of the default group, in rank
     order (rank r at the row-major position r), on CUDA unless
-    ``device="cpu"``. Each axis gets a group of its own, made here with
-    ``TIMEOUT``: every rank makes every group, in the same order."""
+    ``device="cpu"`` (or ``"meta"`` over a fake world). Each axis gets a
+    group of its own, made here with ``TIMEOUT``: every rank makes every
+    group, in the same order."""
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} and axes {axes} differ in length")
@@ -113,9 +120,9 @@ def make_mesh(shape, axes, *, device=None) -> Mesh:
             if me in members:
                 mine = g
         groups.append(mine)
-    dm = DeviceMesh.from_group(groups, device_type, mesh=torch.as_tensor(ranks),
-                               mesh_dim_names=axes)
-    return Mesh(dm, axes)
+    dm = DeviceMesh.from_group(groups, "cpu" if device_type == "meta" else device_type,
+                               mesh=torch.as_tensor(ranks), mesh_dim_names=axes)
+    return Mesh(dm, axes, device_type)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:

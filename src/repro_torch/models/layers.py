@@ -129,11 +129,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: float,
 
 def project(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     """``pe``: contract the last ``n_in`` axes of x with the first ``n_in``
-    of w; the product comes out in x's dtype."""
-    lead, tail = x.shape[:x.dim() - n_in], w.shape[n_in:]
+    of w; the product comes out in x's dtype. On a mesh the reshapes keep
+    whole a dim that "model" does not divide (``sharding.reshape``)."""
+    lead, tail = tuple(x.shape[:x.dim() - n_in]), tuple(w.shape[n_in:])
     k = int(np.prod(w.shape[:n_in]))
-    y = x.reshape(-1, k) @ w.reshape(k, -1)
-    return y.view(*lead, *tail)
+    y = shd.reshape(x, (int(np.prod(lead)), k)) @ shd.reshape(w, (k, int(np.prod(tail))))
+    return shd.reshape(y, lead + tail)
 
 
 def _dense_attention(q, k, v, *, causal: bool, q_offset: int = 0, k_offset: int = 0,
@@ -199,6 +200,10 @@ class Attention(nn.Module):
         v = project(src, self.wv, 1)
         q = shd.constrain(q, "batch", "seq", "heads", None)
         k = shd.constrain(k, "batch", "seq", "kv_heads", None)
+        # v as k (the reference constrains k alone): on a mesh, v's gradient
+        # is then reduced here, not carried as a partial sum into the
+        # products of wv's gradient and of x's
+        v = shd.constrain(v, "batch", "seq", "kv_heads", None)
         if isinstance(q, DTensor):
             if kv_cache is not None:
                 if pos is None:
@@ -427,7 +432,9 @@ def _route_and_dispatch(xt: torch.Tensor, router: torch.Tensor, e: int, k: int, 
     order = torch.sort(flat_e, stable=True).indices
     rank = torch.empty_like(order)
     rank[order] = torch.arange(flat_e.numel(), device=xt.device)
-    counts = torch.bincount(flat_e, minlength=ev)
+    # a scatter-add, not bincount: the same counts, and it runs on ``meta``
+    counts = torch.zeros(ev, dtype=flat_e.dtype, device=xt.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     pos = rank - (torch.cumsum(counts, 0) - counts)[flat_e]
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos, ev * cap)          # dropped -> the pad row

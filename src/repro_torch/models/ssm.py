@@ -139,7 +139,7 @@ def ssm_train(params: dict, x: torch.Tensor, cfg, chunk: int = 256) -> torch.Ten
     z, xbc, dt_raw = _split_proj(params, x, cfg)
     xbc, _ = _conv_scan(params, xbc)
     xbc = shd.unshard(xbc, -1)
-    xs = xbc[..., :d_inner].reshape(b, t, heads, p)
+    xs = shd.reshape(xbc[..., :d_inner], (b, t, heads, p))
     bmat = xbc[..., d_inner:d_inner + n]                            # [B, T, N]
     cmat = xbc[..., d_inner + n:]                                   # [B, T, N]
     dt, a = _gates(params, dt_raw)
@@ -149,7 +149,7 @@ def ssm_train(params: dict, x: torch.Tensor, cfg, chunk: int = 256) -> torch.Ten
     else:
         y = _ssd_scan(xdt, bmat, cmat, a, chunk)
     y = y + xs * params["d_skip"][:, None]
-    y = (y.reshape(b, t, d_inner) * nn.functional.silu(z.float())).to(x.dtype)
+    y = (shd.reshape(y, (b, t, d_inner)) * nn.functional.silu(z.float())).to(x.dtype)
     y = shd.constrain(y, "batch", "seq", None)
     return L.project(y, params["out_proj"], 1)
 
@@ -283,7 +283,7 @@ def ssm_step(params: dict, x: torch.Tensor, cfg, cache: dict) -> tuple[torch.Ten
     z, xbc, dt_raw = _split_proj(params, x, cfg)
     xbc, conv_state = _conv_scan(params, xbc, cache["conv"])
     xbc = shd.unshard(xbc, -1)
-    xs = xbc[:, 0, :d_inner].reshape(b, heads, p)
+    xs = shd.reshape(xbc[:, 0, :d_inner], (b, heads, p))
     bvec = xbc[:, 0, d_inner:d_inner + n]
     cvec = xbc[:, 0, d_inner + n:]
     dt, a = _gates(params, dt_raw)                                  # [B, 1, H]
@@ -292,7 +292,7 @@ def ssm_step(params: dict, x: torch.Tensor, cfg, cache: dict) -> tuple[torch.Ten
     step = _state_step_on_mesh if isinstance(cache["h"], DTensor) else _state_step
     y, h = step(cache["h"], a[:, 0], bvec, cvec, xdt)
     y = y + xs * params["d_skip"][:, None]
-    y = (y.reshape(b, 1, d_inner) * nn.functional.silu(z.float())).to(x.dtype)
+    y = (shd.reshape(y, (b, 1, d_inner)) * nn.functional.silu(z.float())).to(x.dtype)
     if isinstance(cache["conv"], DTensor) \
             and tuple(conv_state.placements) != tuple(cache["conv"].placements):
         conv_state = conv_state.redistribute(cache["conv"].device_mesh,

@@ -160,10 +160,6 @@ class Block(nn.Module):
         return x, None
 
 
-# the families whose every sublayer runs on a device mesh (the cross
-# sublayers and the audio encoder do not yet)
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
 # the audio encoder's sublayer: self-attention (run non-causal) and an MLP
 ENCODER_KIND = SublayerKind("attn", False, False, True)
 
@@ -240,7 +236,11 @@ class Model(nn.Module):
         return self.enc_norm(x)
 
     def _extra(self, value) -> torch.Tensor:
-        return torch.as_tensor(value).to(device=self.device, dtype=L.dtype_of(self.cfg))
+        """An extra in the model dtype on the model's device; inside
+        ``use_rules`` with a mesh, laid out by ("batch", None, None), the
+        reference's ``cells._extras_specs``."""
+        x = torch.as_tensor(value).to(device=self.device, dtype=L.dtype_of(self.cfg))
+        return shd.constrain(shd.as_global(x), "batch", None, None)
 
     def _memory_for(self, extras: dict) -> torch.Tensor | None:
         """``_memory_for``: ``memory`` wins, then the family's own extra."""
@@ -268,9 +268,6 @@ class Model(nn.Module):
     def _hidden(self, tokens: torch.Tensor, extras: dict | None,
                 cache: dict | None = None, remat: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        if shd.current_mesh() is not None and self.cfg.family not in MESH_FAMILIES:
-            raise NotImplementedError(f"{self.cfg.name}: the {self.cfg.family} family does "
-                                      "not run on a mesh yet")
         memory = self._memory_for(extras or {})
         x = self._embed(shd.as_global(tokens.to(self.device), "batch", "seq"))
         aux = shd.as_global(torch.zeros((), dtype=torch.float32, device=self.device))

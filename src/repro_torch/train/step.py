@@ -32,7 +32,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import optim
 
@@ -105,11 +105,29 @@ def _plain(x: torch.Tensor) -> torch.Tensor:
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
-def _split(x, n: int, i: int):
+def _rows_whole(x):
+    """A batch DTensor with its first axis gathered whole on every rank
+    (its other placements kept), so that ``_split`` can take the
+    reference's rows; anything else comes back as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim % x.dim() == 0 else p
+                 for p in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+def _split(x, n: int, i: int, placements):
+    """Microbatch i of n along the first axis: rows ``[i b/n, (i+1) b/n)``,
+    the reference's ``x.reshape(n, b // n, ...)[i]``. A DTensor (given
+    with its first axis whole, ``_rows_whole``) comes back laid out by
+    ``placements``, the batch's own."""
     b = x.shape[0]
     if b % n:
         raise ValueError(f"batch {b} is not a multiple of {n} microbatches")
-    return x[i * (b // n):(i + 1) * (b // n)]
+    part = x[i * (b // n):(i + 1) * (b // n)]
+    if isinstance(part, DTensor) and tuple(part.placements) != tuple(placements):
+        part = part.redistribute(part.device_mesh, placements)
+    return part
 
 
 def make_train_step(model: nn.Module, tx: optim.GradientTransform, *,
@@ -130,8 +148,10 @@ def make_train_step(model: nn.Module, tx: optim.GradientTransform, *,
         else:
             grads = {k: torch.zeros_like(p, dtype=F32) for k, p in params.items()}
             losses, ms = [], []
+            whole = {k: _rows_whole(v) for k, v in batch.items()}
             for i in range(num_microbatches):
-                mb = {k: _split(v, num_microbatches, i) for k, v in batch.items()}
+                mb = {k: _split(v, num_microbatches, i, getattr(batch[k], "placements", None))
+                      for k, v in whole.items()}
                 l, m, g = loss_and_grads(model, params, mb, remat)
                 for k, gi in g.items():
                     grads[k] += gi.to(F32)

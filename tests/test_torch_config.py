@@ -244,9 +244,9 @@ def test_api_exports_are_reference_names():
         assert name in mine and getattr(api, name).__module__.startswith("repro_torch.api")
 
 
-# names a reference package exports whose module is not ported yet (ROADMAP
-# Queue 1 item 9: the cells of the distributed dry run)
-UNPORTED_EXPORTS = {"configs": {"cells"}}
+# names a reference package exports whose module is not ported yet (none
+# since the cells of the dry run were ported)
+UNPORTED_EXPORTS: dict[str, set[str]] = {}
 
 
 @pytest.mark.parametrize("pkg", ["api", "checkpoint", "configs", "core", "data", "distributed",

@@ -311,34 +311,6 @@ def test_fsdp_step_matches_unsharded_step(runs):
     _assert_leaves(rec["params"], rec["unsharded_params"], "params")
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
-def test_unported_families_raise_on_a_mesh(arch):
-    """The VLM and audio families do not run on a mesh yet: their loss
-    raises inside ``use_rules`` with a mesh, and runs without (the images
-    or frames drawn at random)."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.distributed import sharding as shd
-    from repro_torch.models import make_model
-
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
-    model = make_model(cfg, device="cpu")
-    batch = _batch(cfg.vocab_size)
-    rng = np.random.default_rng(2)
-    if cfg.family == "vlm":
-        batch["images"] = rng.normal(size=(B, cfg.num_image_tokens, cfg.d_model)).astype(
-            np.float32)
-    if cfg.family == "audio":
-        batch["frames"] = rng.normal(size=(B, cfg.num_audio_frames, cfg.d_model)).astype(
-            np.float32)
-
-    with shd.use_rules(shd.default_rules(cfg), MeshShape()):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            model.loss(batch)
-    with torch.no_grad():
-        loss, _ = model.loss(batch, remat=False)
-    assert torch.isfinite(loss)
-
-
 def test_remat_recompute_keeps_the_mesh(tmp_path):
     """The backward of a CUDA tensor runs on the autograd engine's own
     thread, where the forward's ``use_rules`` context is not set: the
